@@ -1,0 +1,19 @@
+"""Screen projection for the rasterisers (counterpart of
+hifihr_tpu/render/raster_jax.py::project_to_screen).
+
+Screen convention: pixel coordinates, u right / v down, pixel centres at
+i + 0.5; u = fx * x / z + cx (OpenCV-style K).
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def project_to_screen(verts_cam: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
+    """verts_cam (B, V, 3), K (B, 3, 3) pixel intrinsics -> (B, V, 3) [u, v, z]."""
+    z = verts_cam[..., 2:3]
+    z_safe = torch.where(z.abs() < 1e-8, torch.full_like(z, 1e-8), z)
+    u = K[:, None, 0, 0:1] * verts_cam[..., 0:1] / z_safe + K[:, None, 0, 2:3]
+    v = K[:, None, 1, 1:2] * verts_cam[..., 1:2] / z_safe + K[:, None, 1, 2:3]
+    return torch.cat([u, v, z], dim=-1)
