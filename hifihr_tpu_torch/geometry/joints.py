@@ -28,3 +28,15 @@ MANOPTH_REORDER = np.array(
 )
 # tip vertices appended after the 16 kinematic joints, in slot order 16..20
 MANOPTH_TIP_VERTS = np.array([745, 317, 444, 556, 673], dtype=np.int32)
+
+# (parent, child) of the 20 FreiHAND bones, wrist outward per finger
+FREI_BONES = np.array(
+    [
+        (0, 1), (1, 2), (2, 3), (3, 4),  # thumb
+        (0, 5), (5, 6), (6, 7), (7, 8),  # index
+        (0, 9), (9, 10), (10, 11), (11, 12),  # middle
+        (0, 13), (13, 14), (14, 15), (15, 16),  # ring
+        (0, 17), (17, 18), (18, 19), (19, 20),  # pinky
+    ],
+    dtype=np.int32,
+)

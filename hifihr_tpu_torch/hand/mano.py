@@ -15,6 +15,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from hifihr_tpu_torch import constant
 from hifihr_tpu_torch.assets import ManoModel, load_mano_model
 from hifihr_tpu_torch.geometry.joints import (
     FREI_TIP_VERTEX,
@@ -50,8 +51,13 @@ class ManoOutput(NamedTuple):
 def _rigid_tf(rot: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """rot (..., 3, 3), t (..., 3) -> homogeneous (..., 4, 4)."""
     top = torch.cat([rot, t[..., :, None]], dim=-1)
-    bottom = rot.new_tensor([0.0, 0.0, 0.0, 1.0]).expand(top.shape[:-2] + (1, 4))
+    bottom = constant([0.0, 0.0, 0.0, 1.0], rot.device, rot.dtype).expand(top.shape[:-2] + (1, 4))
     return torch.cat([top, bottom], dim=-2)
+
+
+def _take(x: torch.Tensor, index, dim: int = 1) -> torch.Tensor:
+    """x indexed along `dim` by a constant index list, cached on x's device."""
+    return x.index_select(dim, constant(index, x.device, torch.int64))
 
 
 class ManoLayer(nn.Module):
@@ -102,11 +108,12 @@ class ManoLayer(nn.Module):
         pose_map = (rots[:, 1:] - eye).reshape(b, 135)
         v_posed = v_shaped + (pose_map @ self.posedirs.T).reshape(b, 778, 3)
 
+        j1, j2, j3 = (_take(joints16, lev) for lev in (_LEV1, _LEV2, _LEV3))
         root_tf = _rigid_tf(rots[:, 0], joints16[:, 0])  # (B, 4, 4)
-        lev1_tf = root_tf[:, None] @ _rigid_tf(rots[:, _LEV1], joints16[:, _LEV1] - joints16[:, 0:1])
-        lev2_tf = lev1_tf @ _rigid_tf(rots[:, _LEV2], joints16[:, _LEV2] - joints16[:, _LEV1])
-        lev3_tf = lev2_tf @ _rigid_tf(rots[:, _LEV3], joints16[:, _LEV3] - joints16[:, _LEV2])
-        tfs = torch.cat([root_tf[:, None], lev1_tf, lev2_tf, lev3_tf], dim=1)[:, _LEVELS_TO_KINEMATIC]
+        lev1_tf = root_tf[:, None] @ _rigid_tf(_take(rots, _LEV1), j1 - joints16[:, 0:1])
+        lev2_tf = lev1_tf @ _rigid_tf(_take(rots, _LEV2), j2 - j1)
+        lev3_tf = lev2_tf @ _rigid_tf(_take(rots, _LEV3), j3 - j2)
+        tfs = _take(torch.cat([root_tf[:, None], lev1_tf, lev2_tf, lev3_tf], dim=1), _LEVELS_TO_KINEMATIC)
 
         # remove the rest-pose joint location (inverse-bind translation)
         posed_j = torch.einsum("bjxy,bjy->bjx", tfs[:, :, :3, :3], joints16)
@@ -117,8 +124,8 @@ class ManoLayer(nn.Module):
         verts = torch.einsum("bvxy,bvy->bvx", T[:, :, :3, :3], v_posed) + T[:, :, :3, 3]
 
         jtr16 = tfs[:, :, :3, 3]
-        tips = verts[:, MANOPTH_TIP_VERTS]
-        jtr = torch.cat([jtr16, tips], dim=1)[:, MANOPTH_REORDER]
+        tips = _take(verts, MANOPTH_TIP_VERTS)
+        jtr = _take(torch.cat([jtr16, tips], dim=1), MANOPTH_REORDER)
         if self.center_idx is not None:
             center = jtr[:, self.center_idx:self.center_idx + 1]
             jtr = jtr - center
@@ -130,5 +137,5 @@ def regress_joints_frei(verts: torch.Tensor, J_regressor: torch.Tensor) -> torch
     """FreiHAND-order 21 joints from a posed MANO mesh: verts (B, 778, 3),
     J_regressor (16, 778) -> (B, 21, 3)."""
     joints16 = torch.einsum("jv,bvd->bjd", J_regressor, verts)
-    tips = verts[:, _FREI_TIP_VERTS]
-    return torch.cat([joints16, tips], dim=1)[:, _FREI_GATHER]
+    tips = _take(verts, _FREI_TIP_VERTS)
+    return _take(torch.cat([joints16, tips], dim=1), _FREI_GATHER)

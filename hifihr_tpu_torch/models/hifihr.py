@@ -15,6 +15,7 @@ import contextlib
 import torch
 from torch import nn
 
+from hifihr_tpu_torch import constant
 from hifihr_tpu_torch.config import Config
 from hifihr_tpu_torch.geometry.projection import perspective_project
 from hifihr_tpu_torch.hand.mano import ManoLayer, regress_joints_frei
@@ -55,7 +56,7 @@ class HiFiHR(nn.Module):
         return contextlib.nullcontext()
 
     def _vertex_albedo(self, batch: int) -> torch.Tensor:
-        skin = self.vert_tex.new_tensor([1.0, 0.2, -0.2])
+        skin = constant([1.0, 0.2, -0.2], self.vert_tex.device, self.vert_tex.dtype)
         return torch.sigmoid(self.vert_tex + skin)[None].expand(batch, 778, 3)
 
     def forward(self, images: torch.Tensor, Ks: torch.Tensor | None = None,

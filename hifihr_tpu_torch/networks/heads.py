@@ -1,4 +1,4 @@
-"""Regression heads in eval mode (counterpart of
+"""Regression heads (counterpart of
 hifihr_tpu/networks/heads.py): MMPool, HandEncoder, LightEstimator. Module
 names follow the flax parameter names."""
 
@@ -7,6 +7,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as Fn
 from torch import nn
+
+from hifihr_tpu_torch.networks.batchnorm import BatchNorm1d
 
 
 class MMPool(nn.Module):
@@ -31,9 +33,9 @@ class HandEncoder(nn.Module):
         self.shape_ncomp = shape_ncomp
         self.use_mean_shape = use_mean_shape
         self.base_fc0 = nn.Linear(in_dim, 1024)
-        self.base_bn0 = nn.BatchNorm1d(1024)
+        self.base_bn0 = BatchNorm1d(1024)
         self.base_fc1 = nn.Linear(1024, 512)
-        self.base_bn1 = nn.BatchNorm1d(512)
+        self.base_bn1 = BatchNorm1d(512)
         self.heads = {"pose": ((128,), pose_ncomp), "scale": ((128, 32), 1),
                       "trans": ((128, 32), 3), "rot": ((128, 32), 3)}
         if not use_mean_shape:

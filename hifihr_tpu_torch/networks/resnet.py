@@ -16,6 +16,8 @@ import torch
 import torch.nn.functional as Fn
 from torch import nn
 
+from hifihr_tpu_torch import constant
+from hifihr_tpu_torch.networks.batchnorm import BatchNorm2d
 from hifihr_tpu_torch.networks.heads import MMPool
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -24,8 +26,8 @@ IMAGENET_STD = (0.229, 0.224, 0.225)
 
 def normalize_imagenet(images: torch.Tensor) -> torch.Tensor:
     """NHWC float images in [0, 1] -> imagenet-normalised (3 channels)."""
-    mean = images.new_tensor(IMAGENET_MEAN)
-    std = images.new_tensor(IMAGENET_STD)
+    mean = constant(IMAGENET_MEAN, images.device, images.dtype)
+    std = constant(IMAGENET_STD, images.device, images.dtype)
     return (images - mean) / std
 
 
@@ -62,12 +64,12 @@ class BasicBlock(nn.Module):
     def __init__(self, cin: int, filters: int, stride: int = 1):
         super().__init__()
         self.conv1 = _conv(cin, filters, 3, stride, 1)
-        self.bn1 = nn.BatchNorm2d(filters)
+        self.bn1 = BatchNorm2d(filters)
         self.conv2 = _conv(filters, filters, 3, 1, 1)
-        self.bn2 = nn.BatchNorm2d(filters)
+        self.bn2 = BatchNorm2d(filters)
         if stride != 1 or cin != filters:
             self.downsample_conv = _conv(cin, filters, 1, stride)
-            self.downsample_bn = nn.BatchNorm2d(filters)
+            self.downsample_bn = BatchNorm2d(filters)
 
     def forward(self, x):
         y = Fn.relu(self.bn1(self.conv1(x)))
@@ -83,14 +85,14 @@ class Bottleneck(nn.Module):
     def __init__(self, cin: int, filters: int, stride: int = 1):
         super().__init__()
         self.conv1 = _conv(cin, filters, 1)
-        self.bn1 = nn.BatchNorm2d(filters)
+        self.bn1 = BatchNorm2d(filters)
         self.conv2 = _conv(filters, filters, 3, stride, 1)
-        self.bn2 = nn.BatchNorm2d(filters)
+        self.bn2 = BatchNorm2d(filters)
         self.conv3 = _conv(filters, filters * 4, 1)
-        self.bn3 = nn.BatchNorm2d(filters * 4)
+        self.bn3 = BatchNorm2d(filters * 4)
         if stride != 1 or cin != filters * 4:
             self.downsample_conv = _conv(cin, filters * 4, 1, stride)
-            self.downsample_bn = nn.BatchNorm2d(filters * 4)
+            self.downsample_bn = BatchNorm2d(filters * 4)
 
     def forward(self, x):
         y = Fn.relu(self.bn1(self.conv1(x)))
@@ -115,7 +117,7 @@ class ResNet(nn.Module):
         super().__init__()
         block_cls, depths = _CONFIGS[variant]
         self.conv1 = StemConv()
-        self.bn1 = nn.BatchNorm2d(64)
+        self.bn1 = BatchNorm2d(64)
         self.blocks = []
         cin = 64
         for stage, (depth, width) in enumerate(zip(depths, (64, 128, 256, 512))):

@@ -29,15 +29,21 @@ def fragment_interpolate(face_id: torch.Tensor, verts_screen: torch.Tensor,
     (pix_attrs (B, H, W, D), mask (B, H, W), zbuf (B, H, W)).
 
     Fetches each pixel's row of the packed face table with K2
-    (`gather_rows`), which gives zero rows for background pixels; the math
-    below masks them."""
+    (`gather_rows`, whose backward is K3), which gives zero rows for
+    background pixels; `interpolate_rows` masks them."""
     B, H, W = face_id.shape
-    D = vert_attrs.shape[-1]
     table = pack_face_table(verts_screen, faces, vert_attrs)
     pix = gather_rows(table, face_id.reshape(B, H * W).to(torch.int32).contiguous())
-    pix = pix.reshape(B, H, W, 9 + 3 * D)
+    return interpolate_rows(face_id, pix.reshape(B, H, W, table.shape[-1]))
 
-    dt = verts_screen.dtype
+
+def interpolate_rows(face_id: torch.Tensor, pix: torch.Tensor):
+    """The barycentric recompute and interpolation on each pixel's fetched
+    row: face_id (B, H, W), pix (B, H, W, 9 + 3D) -> (pix_attrs (B, H, W, D),
+    mask (B, H, W), zbuf (B, H, W))."""
+    H, W = face_id.shape[1:]
+    D = (pix.shape[-1] - 9) // 3
+    dt = pix.dtype
     u = (torch.arange(W, dtype=dt, device=pix.device) + 0.5).view(1, 1, W)
     v = (torch.arange(H, dtype=dt, device=pix.device) + 0.5).view(1, H, 1)
     ax, ay, az = pix[..., 0], pix[..., 1], pix[..., 2]

@@ -9,6 +9,7 @@ of the sums.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -41,3 +42,18 @@ def vertex_normals(verts: torch.Tensor, faces: torch.Tensor) -> torch.Tensor:
     v_normals = accumulate_corners(face_normals(verts, faces), faces, verts.shape[1])
     # eps inside the sqrt: finite for degenerate (zero-normal) vertices
     return v_normals * torch.rsqrt((v_normals * v_normals).sum(-1, keepdim=True) + 1e-20)
+
+
+def uniform_laplacian(num_verts: int, faces) -> torch.Tensor:
+    """Dense uniform Laplacian L (V, V), fp32: (L @ v)_i = mean over the
+    neighbours j of i of v_j, minus v_i. Fixed topology, so it is built once
+    on the host (the `triangle` loss's operator)."""
+    faces = np.asarray(faces)
+    adj = np.zeros((num_verts, num_verts), np.float32)
+    for a, b in ((0, 1), (1, 2), (2, 0)):
+        adj[faces[:, a], faces[:, b]] = 1.0
+        adj[faces[:, b], faces[:, a]] = 1.0
+    deg = adj.sum(1)
+    inv_deg = np.where(deg > 0, 1.0 / np.maximum(deg, 1), 0.0)
+    lap = adj * inv_deg[:, None] - np.diag((deg > 0).astype(np.float32))
+    return torch.from_numpy(lap.astype(np.float32))

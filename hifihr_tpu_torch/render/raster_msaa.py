@@ -20,12 +20,15 @@ background). The renderer recomputes its own depth and ignores zbuf.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from hifihr_tpu_torch import kernels
+from hifihr_tpu_torch import constant, kernels
 from hifihr_tpu_torch.render.mesh import gather_face_rows
 
 N_REC = 15  # floats per face record
+_INERT = np.zeros(N_REC, np.float32)  # the record of a face that never covers
+_INERT[2] = -1.0
 
 
 def msaa_prep(verts_screen: torch.Tensor, faces: torch.Tensor):
@@ -58,11 +61,9 @@ def msaa_prep(verts_screen: torch.Tensor, faces: torch.Tensor):
     coef = torch.stack(
         [e0u, e0v, e0c, e1u, e1v, e1c, e2u, e2v, e2c, zu, zv, zc, fid_f, zmin, zmax], dim=-1
     )
-    inert = torch.zeros(N_REC, dtype=torch.float32, device=tri.device)
-    inert[2] = -1.0
-    coef = torch.where(valid[..., None], coef, inert)
+    coef = torch.where(valid[..., None], coef, constant(_INERT, tri.device))
 
-    inf = torch.tensor(float("inf"), device=tri.device)
+    inf = torch.full((), float("inf"), device=tri.device)
     fu, fv = tri[:, :, 0::3], tri[:, :, 1::3]
     ok = valid[..., None]
     bbox = torch.stack(

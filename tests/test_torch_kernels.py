@@ -1,6 +1,7 @@
-"""The port's kernels K1 (MSAA face selection) and K2 (per-pixel row gather),
-through their plain PyTorch versions, against the JAX package's Pallas
-kernels in interpret mode.
+"""The port's kernels K1 (MSAA face selection), K2 (per-pixel row gather)
+and K3 (its transpose, a segment sum), through their plain PyTorch versions
+and the autograd wiring, against the JAX package's Pallas kernels in
+interpret mode.
 
 K1: face_id and coverage exactly equal, zbuf at rtol 1e-6 where covered. The
 JAX side runs under `jax.disable_jit()`: under jit, XLA's CPU backend fuses
@@ -10,7 +11,13 @@ operation rounds on its own, as in the port. The interpreted kernel body
 still contracts its depth-plane evaluation, which leaves zbuf within 2e-7
 relative. K2: rtol 3e-5 / atol 3e-3 against the TPU form, whose hi/lo
 bf16 split is good to about 2^-16 (tests/test_gather_mxu.py), and bit-equal
-to numpy indexing, since the port's gather is a plain copy.
+to numpy indexing, since the port's gather is a plain copy. K3: exactly equal
+to a numpy segment sum on integer-valued inputs (every partial sum is an
+exact fp32 integer), within 1e-6 relative on random ones (fp32 sums in
+another order), and at K2's rtol 3e-5 / atol 3e-3 against the TPU form.
+The gradients of gather_rows and scatter_rows are each other's forward, so
+they are held bit-equal to the other function, and at K2's tolerance to
+`jax.vjp` of the TPU kernels.
 """
 
 import jax
@@ -20,6 +27,7 @@ import pytest
 import torch
 
 from hifihr_tpu.render.gather_mxu import gather_rows as jax_gather_rows
+from hifihr_tpu.render.gather_mxu import scatter_rows as jax_scatter_rows
 from hifihr_tpu.render.raster_jax import project_to_screen as jax_project
 from hifihr_tpu.render.raster_msaa import rasterize_msaa_pallas
 from hifihr_tpu_torch.assets import load_mano_model
@@ -174,3 +182,69 @@ def test_k2_out_of_range_rows_are_zero_and_cpu_takes_plain_version():
     out = tgather.gather_rows(table, idx)
     assert tgather.gather_rows.launches == before
     np.testing.assert_array_equal(out[0, :, 0].numpy(), [0, 1, 1, 0, 0, 0])
+
+
+def _segment_sum(values, idx, F):
+    B, _, D = values.shape
+    ref = np.zeros((B, F, D), np.float64)
+    for b in range(B):
+        ok = (idx[b] >= 0) & (idx[b] < F)
+        np.add.at(ref[b], idx[b][ok], values[b][ok])
+    return ref
+
+
+@pytest.mark.parametrize("B,F,D,P", [(2, 37, 9, 300), (2, 1538, 27, 500), (1, 5000, 7, 400)])
+def test_k3_plain_matches_numpy_segment_sum(B, F, D, P):
+    rng = np.random.RandomState(F + 1)
+    idx = rng.randint(-1, F + 3, size=(B, P)).astype(np.int32)  # -1 and >= F are dropped
+    ints = rng.randint(-50, 50, size=(B, P, D)).astype(np.float32)
+    out = tgather.scatter_rows_plain(torch.tensor(ints), torch.tensor(idx), F).numpy()
+    np.testing.assert_array_equal(out, _segment_sum(ints, idx, F).astype(np.float32))
+    vals = rng.randn(B, P, D).astype(np.float32)
+    out = tgather.scatter_rows_plain(torch.tensor(vals), torch.tensor(idx), F).numpy()
+    ref = _segment_sum(vals, idx, F)
+    np.testing.assert_allclose(out, ref, rtol=1e-6, atol=1e-6 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("B,F,D,P,background", [(2, 37, 9, 300, 0.3), (2, 1538, 27, 2000, 0.5),
+                                                (1, 2500, 7, 600, 0.1), (2, 19, 5, 257, 1.0)])
+def test_k3_matches_tpu_scatter(B, F, D, P, background):
+    """F > 1024 spans two TPU table blocks; background 1.0 makes every row -1."""
+    rng = np.random.RandomState(P)
+    vals = rng.randn(B, P, D).astype(np.float32)
+    idx = rng.randint(0, F, size=(B, P)).astype(np.int32)
+    idx[rng.rand(B, P) < background] = -1
+    out = tgather.scatter_rows(torch.tensor(vals), torch.tensor(idx), F).numpy()
+    ref = np.asarray(jax_scatter_rows(jnp.asarray(vals), jnp.asarray(idx), F, True))
+    np.testing.assert_allclose(out, ref, rtol=3e-5, atol=3e-3)
+    if background == 1.0:
+        assert not out.any()
+
+
+def test_k2_gradient_is_k3_and_matches_jax_vjp():
+    rng = np.random.RandomState(5)
+    B, F, D, P = 2, 1538, 27, 700
+    table, idx = _gather_inputs(B, F, D, P, seed=6)
+    ct = rng.randn(B, P, D).astype(np.float32)
+    t = torch.tensor(table, requires_grad=True)
+    before = tgather.scatter_rows.launches
+    tgather.gather_rows(t, torch.tensor(idx)).backward(torch.tensor(ct))
+    assert tgather.scatter_rows.launches == before  # a CPU tensor takes the plain version
+    _, vjp = jax.vjp(lambda x: jax_gather_rows(x, jnp.asarray(idx), True), jnp.asarray(table))
+    np.testing.assert_allclose(t.grad.numpy(), np.asarray(vjp(jnp.asarray(ct))[0]), rtol=3e-5, atol=3e-3)
+    np.testing.assert_array_equal(
+        t.grad.numpy(), tgather.scatter_rows_plain(torch.tensor(ct), torch.tensor(idx), F).numpy())
+
+
+def test_k3_gradient_is_k2():
+    rng = np.random.RandomState(7)
+    B, F, D, P = 2, 37, 9, 300
+    vals = torch.tensor(rng.randn(B, P, D).astype(np.float32), requires_grad=True)
+    idx = torch.tensor(rng.randint(-1, F, size=(B, P)).astype(np.int32))
+    ct = torch.tensor(rng.randn(B, F, D).astype(np.float32))
+    tgather.scatter_rows(vals, idx, F).backward(ct)
+    assert torch.equal(vals.grad, tgather.gather_rows_plain(ct, idx))
+    _, vjp = jax.vjp(lambda v: jax_scatter_rows(v, jnp.asarray(idx.numpy()), F, True),
+                     jnp.asarray(vals.detach().numpy()))
+    np.testing.assert_allclose(vals.grad.numpy(), np.asarray(vjp(jnp.asarray(ct.numpy()))[0]),
+                               rtol=3e-5, atol=3e-3)

@@ -42,6 +42,42 @@ def randomize_variables(variables: dict, seed: int) -> dict:
     return v
 
 
+def jax_msaa_select_op_by_op(self, verts_cam, K_base):
+    """Stands in for hifihr_tpu's PhongRenderer._select_faces_msaa: the
+    Pallas MSAA kernel in interpret mode (the JAX CPU path otherwise emulates
+    MSAA from an SSAA raster, which picks faces by another rule), run op by
+    op in a host callback. Under jit, XLA contracts the projection's and the
+    prep's multiply-adds and can move a face id on an edge-on subsample;
+    op by op every operation rounds on its own, as in the port. The callback
+    takes stop-gradient inputs, so it also runs inside jax.grad."""
+    import jax
+    import jax.numpy as jnp
+
+    from hifihr_tpu.render import raster_jax
+    from hifihr_tpu.render.raster_msaa import rasterize_msaa_pallas
+
+    size, samples = self.settings.image_size, self.settings.aa_factor
+
+    def host(verts, K, faces):
+        with jax.disable_jit():
+            vs = raster_jax.project_to_screen(jnp.asarray(verts), jnp.asarray(K))
+            fid, cov, _ = rasterize_msaa_pallas(vs, jnp.asarray(faces), size, samples=samples,
+                                                interpret=True)
+        return np.asarray(fid), np.asarray(cov)
+
+    b = verts_cam.shape[0]
+    out = (jax.ShapeDtypeStruct((b, size, size), jnp.int32),
+           jax.ShapeDtypeStruct((b, size, size), jnp.float32))
+    return jax.pure_callback(host, out, jax.lax.stop_gradient(verts_cam),
+                             jax.lax.stop_gradient(K_base), self.faces)
+
+
+def rel_l2(a, b) -> float:
+    """||a - b|| / ||b||."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
 def posed_mano_verts(batch: int, seed: int, z: float = 0.5) -> np.ndarray:
     """Posed MANO meshes in camera space (JAX ManoLayer, small random pose
     and shape), root at z."""
