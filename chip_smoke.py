@@ -2,7 +2,7 @@
 
 Run from the repository root: `python3 chip_smoke.py` (one CUDA card, nvcc
 under /usr/local/cuda or on PATH). `--profile` adds a torch.profiler pass
-over a few eval steps and a few train steps. Phases:
+over a few eval steps and a few train steps of both render modes. Phases:
 
   1. the card's name and power limit (nvidia-smi)
   2. build the CUDA kernels from hifihr_tpu_torch/csrc/ into
@@ -30,11 +30,27 @@ over a few eval steps and a few train steps. Phases:
      test's configuration (res18, 32 px, 8 images; loss terms within 1e-4,
      each gradient within 1e-3 relative L2), the median step time and
      images/s over 15 steps, and the peak memory
-  8. one `{"kernels": [...]}` line: per kernel its time, launches in one
-     step of its path (K1 and K2 the eval step, K3 the train step; all
-     three in the train step under `launches_train_step`), error against
-     the plain version, the plain version's time, the bound and, for K2 and
-     K3, one PyTorch call's time (indexing; `index_add_`)
+  8. K4 (SSAA face selection) against its plain version on the first 8
+     meshes of phase 3 projected at K * 3 to 672^2, and on a crafted 64^2
+     scene (a vertex at z <= 1e-6, a zero-area face, both windings, two
+     identical faces): face_id and zbuf exactly equal; and the SSAA
+     per-pixel corner fetch forward and backward through K2 and K3 (the
+     port's route) beside torch's advanced indexing (JAX's form)
+  9. the SSAA eval step (the flagship with aa_mode="ssaa", batch 8, the
+     cell of bench.py:276-278): K4 launched once per step, the outputs
+     finite and the silhouette non-empty, the median step time and images/s
+     over 15 steps; the fp32 SSAA eval step on the card against the CPU in
+     the train-slice test's configuration (res18, 32 px, 8 images)
+ 10. the SSAA train step (the same model and batch of 8): the checks of
+     phase 7, with K4, K2 and K3 launched and the card-against-CPU step in
+     the train-slice test's configuration with aa_mode="ssaa"
+ 11. one `{"kernels": [...]}` line: per kernel its time, launches in one
+     step of its path (K1 and K2 the eval step, K3 the train step, K4 the
+     SSAA eval step; the train step of each path under
+     `launches_train_step`, and every kernel's count in the SSAA steps under
+     `launches_ssaa_eval_step` and `launches_ssaa_train_step`), error
+     against the plain version, the plain version's time, the bound and,
+     for K2 and K3, one PyTorch call's time (indexing; `index_add_`)
 
 Any failed check raises, so the exit code is nonzero; so it is without CUDA.
 The last line is {"ok": true, "device": {...}}.
@@ -59,6 +75,10 @@ B, S = 64, 224
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM memory rate
 FP32_OPS_PER_S = 67e12  # H100 SXM fp32 rate outside the tensor cores
 K1_OPS_PER_PAIR = 60  # 9 subsamples x (3 edge steps + 2 min + 1 compare) + depth plane
+# 15 for the edges, 2 area adds, |area| test, 3 divisions, 3 sign tests,
+# 5 for the depth, 1 depth test (csrc/raster_face.cu's inner loop)
+K4_OPS_PER_PAIR = 30
+SSAA_B, AA = 8, 3  # the SSAA cell: bench.py:278 times it at batch 8
 STEPS = 15
 # the bench losses (bench.py:46-49); texture_con and segms_gt in the batch
 # add both photometric triples
@@ -115,7 +135,8 @@ def flagship_batch(device) -> dict:
 def posed_meshes(batch: dict, seed: int = 1):
     """64 posed MANO meshes (numpy-seeded pose and shape) placed as the model
     places them, with the model's vertex albedo and normals: the inputs K1
-    and K2 get on the main path."""
+    and K2 get on the main path. Returns (camera-space verts, their screen
+    projection, faces, [albedo | normals])."""
     from hifihr_tpu_torch.hand.mano import ManoLayer
     from hifihr_tpu_torch.render.mesh import vertex_normals
     from hifihr_tpu_torch.render.raster import project_to_screen
@@ -131,21 +152,30 @@ def posed_meshes(batch: dict, seed: int = 1):
     vs = project_to_screen(verts, batch["Ks"])
     albedo = torch.sigmoid(torch.tensor([1.0, 0.2, -0.2], device=dev)).expand(B, 778, 3)
     attrs = torch.cat([albedo, vertex_normals(verts, faces)], dim=-1)
-    return vs, faces, attrs
+    return verts, vs, faces, attrs
 
 
-def k1_pairs(bbox: torch.Tensor) -> int:
-    """(pixel, face) pairs whose face box touches the pixel: the work K1
-    needs for these inputs, however it culls."""
+def box_pairs(bbox: torch.Tensor, size: int) -> int:
+    """(pixel, face) pairs whose face box touches the pixel in a size^2
+    image: the work K1 or K4 needs for these inputs, however it culls.
+    bbox (B, F, 4) [umin, umax, vmin, vmax], inf for a face that never
+    counts."""
     valid = torch.isfinite(bbox[..., 0])
     bb = torch.where(valid[..., None], bbox, torch.zeros_like(bbox))
-    x0 = bb[..., 0].floor().clamp(0, S - 1)
-    x1 = bb[..., 1].floor().clamp(0, S - 1)
-    y0 = bb[..., 2].floor().clamp(0, S - 1)
-    y1 = bb[..., 3].floor().clamp(0, S - 1)
-    on = valid & (bb[..., 1] >= 0) & (bb[..., 0] < S) & (bb[..., 3] >= 0) & (bb[..., 2] < S)
+    x0 = bb[..., 0].floor().clamp(0, size - 1)
+    x1 = bb[..., 1].floor().clamp(0, size - 1)
+    y0 = bb[..., 2].floor().clamp(0, size - 1)
+    y1 = bb[..., 3].floor().clamp(0, size - 1)
+    on = valid & (bb[..., 1] >= 0) & (bb[..., 0] < size) & (bb[..., 3] >= 0) & (bb[..., 2] < size)
     n = (x1 - x0 + 1) * (y1 - y0 + 1)
     return int(torch.where(on, n, torch.zeros_like(n)).sum().item())
+
+
+def walked_pairs(bbox: torch.Tensor, size: int, tile: int = 16) -> int:
+    """(pixel, listed face) pairs a tile-culling rasteriser walks: each face
+    is listed by every tile its box touches, and all the tile's pixels test
+    it."""
+    return box_pairs(bbox / tile, -(-size // tile)) * tile * tile
 
 
 def bound(nbytes: int, ops: int = 0) -> tuple[float, str]:
@@ -161,7 +191,7 @@ def phase_kernels(batch: dict) -> list:
     from hifihr_tpu_torch.render.renderer import _pixel_ray_points
     from hifihr_tpu_torch.render.shading import DirectionalLight, phong_shade
 
-    vs, faces, attrs = posed_meshes(batch)
+    _, vs, faces, attrs = posed_meshes(batch)
     fid, cov, zb = k1.rasterize_msaa(vs, faces, S)
     fid_p, cov_p, zb_p = k1.rasterize_msaa_plain(vs, faces, S)
     torch.cuda.synchronize()
@@ -190,11 +220,11 @@ def phase_kernels(batch: dict) -> list:
     k1_ms = time_ms(lambda: k1.msaa_select_cuda(coef, bbox, S), reps=20)
     k1_plain_ms = time_ms(lambda: k1.msaa_select_plain(coef, S), reps=1, groups=2)
     prep_ms = time_ms(lambda: k1.msaa_prep(vs, faces), reps=20)
-    pairs = k1_pairs(bbox)
+    pairs = box_pairs(bbox, S)
     k1_bytes = (coef.numel() + bbox.numel()) * 4 + 3 * B * S * S * 4
     k1_bound, k1_by = bound(k1_bytes, pairs * K1_OPS_PER_PAIR)
     print(f"K1: kernel {k1_ms:.4f} ms, plain {k1_plain_ms:.2f} ms, shared prep {prep_ms:.4f} ms, "
-          f"{pairs} (pixel, face) pairs")
+          f"{pairs} (pixel, face) pairs, {walked_pairs(bbox, S)} walked by the tiles")
 
     b_idx = torch.arange(B, device=idx.device)[:, None]
     k2_ms = time_ms(lambda: k2.gather_rows(table, idx), reps=50)
@@ -255,15 +285,138 @@ def phase_kernels(batch: dict) -> list:
     return kernels
 
 
-def phase_eval_step(batch: dict, profile: bool) -> dict:
+def crafted_scene(device):
+    """A 64^2 screen-space scene for K4's edge cases: face 0 has a vertex at
+    z = 1e-6 and face 1 zero area (never selected), faces 2 and 3 are wound
+    opposite ways, faces 4 and 5 are the same triangle (4 wins the tie)."""
+    vs = torch.tensor([[[8.0, 8.0, 1e-6], [56.0, 8.0, 1.0], [32.0, 56.0, 1.0],   # 0
+                        [4.0, 4.0, 0.5], [20.0, 20.0, 0.5], [36.0, 36.0, 0.5],  # 1: collinear
+                        [2.0, 40.0, 0.8], [30.0, 62.0, 0.9], [2.0, 62.0, 0.7],  # 2
+                        [60.0, 2.0, 0.6], [40.0, 30.0, 0.8], [60.0, 30.0, 0.7],  # 3
+                        [10.0, 10.0, 0.4], [50.0, 12.0, 0.45], [30.0, 40.0, 0.5]]],
+                      device=device)
+    faces = torch.tensor([[0, 1, 2], [3, 4, 5], [6, 7, 8], [9, 10, 11], [12, 13, 14], [12, 13, 14]],
+                         device=device)
+    return vs, faces
+
+
+def face_boxes(tri: torch.Tensor) -> torch.Tensor:
+    """(B, F, 4) [umin, umax, vmin, vmax] of K4's input, inf where a vertex
+    lies at z <= 1e-6."""
+    valid = (tri[..., 2::3] > 1e-6).all(-1, keepdim=True)
+    u, v = tri[..., 0::3], tri[..., 1::3]
+    box = torch.stack([u.amin(-1), u.amax(-1), v.amin(-1), v.amax(-1)], dim=-1)
+    return torch.where(valid, box, torch.full_like(box, float("inf")))
+
+
+def ssaa_fetch_times(vs: torch.Tensor, faces: torch.Tensor, fid: torch.Tensor, attrs: torch.Tensor) -> dict:
+    """Forward and backward of the SSAA per-pixel corner fetch of the screen
+    triangle (9 floats) and [albedo | normals | points] (27 floats): through
+    K2 and K3 with idx = -1 on background (the port's route), and by
+    advanced indexing with face 0 on background (JAX's form), whose
+    backward is torch's index_put_ with accumulate. One cotangent, zero on
+    background, for both. Also K3 alone at this shape, beside its bound."""
+    from hifihr_tpu_torch.render.gather import gather_rows, scatter_rows
+    from hifihr_tpu_torch.render.mesh import gather_face_rows
+
+    n, size = fid.shape[0], fid.shape[1]
+    idx = fid.reshape(n, -1).contiguous()
+    covered = (idx >= 0)[..., None].float()
+    gen = torch.Generator(device=vs.device).manual_seed(0)
+    g_tri = torch.randn(n, idx.shape[1], 9, device=vs.device, generator=gen) * covered
+    g_att = torch.randn(n, idx.shape[1], 3 * attrs.shape[-1], device=vs.device, generator=gen) * covered
+    vs_r, at_r = vs.detach().requires_grad_(), attrs.detach().requires_grad_()
+    b_idx = torch.arange(n, device=vs.device)[:, None, None, None]
+    pix_faces = faces[fid.clamp(min=0).long()]
+
+    def k2_route():
+        tri = gather_rows(gather_face_rows(vs_r, faces).contiguous(), idx)
+        att = gather_rows(gather_face_rows(at_r, faces).contiguous(), idx)
+        return torch.autograd.grad([tri, att], [vs_r, at_r], [g_tri, g_att])
+
+    def index_route():
+        tri = vs_r[b_idx, pix_faces].reshape(g_tri.shape)
+        att = at_r[b_idx, pix_faces].reshape(g_att.shape)
+        return torch.autograd.grad([tri, att], [vs_r, at_r], [g_tri, g_att])
+
+    a, b = k2_route(), index_route()
+    err = max(((x - y).abs().max() / y.abs().max()).item() for x, y in zip(a, b))
+    check(err < 1e-5, f"the two SSAA fetch routes give the same gradients ({err})")
+
+    # K3 alone on the wider of the two backward inputs: at 672^2 each face
+    # takes ~9x the rows it takes at 224^2, so more atomics meet on one row
+    F = faces.shape[0]
+    rows = (idx >= 0).sum().item()
+    per_face = torch.bincount((idx + torch.arange(n, device=idx.device)[:, None] * F)[idx >= 0])
+    k3_bound, k3_by = bound(idx.numel() * 4 + rows * g_att.shape[-1] * 4 + n * F * g_att.shape[-1] * 4,
+                            rows * g_att.shape[-1])
+    return {"pixels": n * size * size, "k2_k3_ms": time_ms(k2_route, reps=5),
+            "indexing_ms": time_ms(index_route, reps=5), "max_rel_grad_diff": err,
+            "k3_shape": [n, idx.shape[1], g_att.shape[-1]], "k3_covered_rows": rows,
+            "k3_largest_face_rows": per_face.max().item(),
+            "k3_ms": time_ms(lambda: scatter_rows(g_att, idx, F), reps=20),
+            "k3_bound_ms": k3_bound, "k3_bound_by": k3_by}
+
+
+def phase_k4(batch: dict) -> dict:
+    from hifihr_tpu_torch.render import raster as k4
+    from hifihr_tpu_torch.render.renderer import _scale_intrinsics
+
+    size = S * AA
+    verts, _, faces, attrs = posed_meshes(batch)
+    verts, attrs = verts[:SSAA_B], attrs[:SSAA_B]
+    vs = k4.project_to_screen(verts, _scale_intrinsics(batch["Ks"][:SSAA_B], float(AA)))
+    tri = k4.face_triangles(vs, faces)
+    fid, zb = k4.rasterize_face_id(vs, faces, size)
+    fid_p, zb_p = k4.select_face_id_plain(tri, size)
+    torch.cuda.synchronize()
+    covered = fid_p >= 0
+    print(f"K4: {tuple(fid.shape)}, covered pixels {covered.float().mean().item():.4f}, "
+          f"face_id mismatches {(fid != fid_p).sum().item()}, zbuf mismatches {(zb != zb_p).sum().item()}")
+    check(tuple(tri.shape) == (SSAA_B, 1538, 9), f"K4 input shape {tuple(tri.shape)}")
+    check(torch.equal(fid, fid_p), "K4 face_id equals the plain version")
+    check(torch.equal(zb, zb_p), "K4 zbuf equals the plain version")
+    check(covered.float().mean().item() > 0.01, "K4 scene covers pixels")
+    k4_err = (zb[covered] - zb_p[covered]).abs().max().item()
+
+    cvs, cfaces = crafted_scene(vs.device)
+    cf, cz = k4.rasterize_face_id(cvs, cfaces, 64)
+    cf_p, cz_p = k4.rasterize_face_id_plain(cvs, cfaces, 64)
+    torch.cuda.synchronize()
+    seen = set(torch.unique(cf).tolist())
+    print(f"K4 crafted 64^2 scene: faces selected {sorted(seen)}")
+    check(torch.equal(cf, cf_p) and torch.equal(cz, cz_p), "K4 equals the plain version on the crafted scene")
+    check(seen == {-1, 2, 3, 4}, f"crafted scene: only faces 2, 3 (both windings) and 4 (the tie) win: {seen}")
+
+    k4_ms = time_ms(lambda: k4.select_face_id_cuda(tri, size), reps=20)
+    k4_plain_ms = time_ms(lambda: k4.select_face_id_plain(tri, size), reps=1, groups=2)
+    boxes = face_boxes(tri)
+    pairs = box_pairs(boxes, size)
+    k4_bound, k4_by = bound(tri.numel() * 4 + 2 * fid.numel() * 4, pairs * K4_OPS_PER_PAIR)
+    print(f"K4: kernel {k4_ms:.4f} ms, plain {k4_plain_ms:.2f} ms, {pairs} (pixel, face) pairs, "
+          f"{walked_pairs(boxes, size)} walked by the tiles, bound {k4_bound:.4f} ms ({k4_by})")
+
+    fetch = ssaa_fetch_times(vs, faces, fid, torch.cat([attrs, verts], dim=-1))
+    print("SSAA corner fetch, forward + backward: " + json.dumps(fetch))
+    return {"name": "K4 face_raster", "route": "cuda", "source": "hifihr_tpu_torch/csrc/raster_face.cu",
+            "replaces": "hifihr_tpu/render/raster_pallas.py:26", "launches": None,
+            "max_abs_err": k4_err, "ms": k4_ms, "plain_ms": k4_plain_ms, "bound_ms": k4_bound,
+            "bound_by": k4_by, "library_ms": None}
+
+
+# the kernels each render mode's steps launch; the others must stay at 0
+PATH_KERNELS = {"msaa": ("K1 msaa_raster", "K2 gather_rows", "K3 scatter_rows"),
+                "ssaa": ("K4 face_raster", "K2 gather_rows", "K3 scatter_rows")}
+
+
+def phase_eval_step(batch: dict, profile: bool, aa_mode: str = "msaa") -> dict:
     from hifihr_tpu_torch.config import Config
     from hifihr_tpu_torch.models.hifihr import build_model
-    from hifihr_tpu_torch.render import gather as k2
-    from hifihr_tpu_torch.render import raster_msaa as k1
     from hifihr_tpu_torch.training.steps import make_eval_step
 
+    n = batch["imgs"].shape[0]
     cfg = Config(pretrain="res50", hand_model="mano", render=True, light_estimation=True,
-                 image_size=S, aa_factor=3, aa_mode="msaa", compute_dtype="bfloat16")
+                 image_size=S, aa_factor=AA, aa_mode=aa_mode, compute_dtype="bfloat16")
     model = build_model(cfg, device="cuda", seed=0)
     step = make_eval_step(model, "FreiHand", cfg)
     step(batch)  # cuDNN autotuning and allocator warm-up
@@ -273,12 +426,14 @@ def phase_eval_step(batch: dict, profile: bool) -> dict:
     out = step(batch)
     torch.cuda.synchronize()
     launches = read_launches()
-    print(f"eval step launches: {launches}")
-    check(launches["K1 msaa_raster"] > 0 and launches["K2 gather_rows"] > 0 and launches["K3 scatter_rows"] == 0,
-          f"K1 and K2, and no backward, ran on the eval path: {launches}")
+    print(f"{aa_mode} eval step launches: {launches}")
+    raster, gather, scatter = PATH_KERNELS[aa_mode]
+    check(launches[raster] == 1 and launches[gather] > 0 and launches[scatter] == 0
+          and sum(launches.values()) == launches[raster] + launches[gather],
+          f"the {aa_mode} rasteriser once, K2, and no backward or other rasteriser on the eval path: {launches}")
 
-    shapes = {"joints": (B, 21, 3), "mano_verts": (B, 778, 3), "j2d": (B, 21, 2),
-              "re_img": (B, S, S, 3), "re_sil": (B, S, S, 1), "re_depth": (B, S, S)}
+    shapes = {"joints": (n, 21, 3), "mano_verts": (n, 778, 3), "j2d": (n, 21, 2),
+              "re_img": (n, S, S, 3), "re_sil": (n, S, S, 1), "re_depth": (n, S, S)}
     for k, shp in shapes.items():
         check(tuple(out[k].shape) == shp, f"{k} shape {tuple(out[k].shape)} != {shp}")
     for k, v in out.items():
@@ -287,38 +442,50 @@ def phase_eval_step(batch: dict, profile: bool) -> dict:
     sil_frac = (sil > 0).float().mean().item()
     check(bool(((sil == 0) | (sil == 255)).all()), "re_sil in {0, 255}")
     check(sil_frac > 0.001, f"re_sil covers pixels ({sil_frac})")
-    print(f"eval step outputs finite; re_sil covers {sil_frac:.4f} of pixels")
+    print(f"{aa_mode} eval step outputs finite; re_sil covers {sil_frac:.4f} of pixels")
 
-    # fp32 on the card (kernels) against fp32 on the CPU (plain versions), 2 images
-    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
-    small = {k: v[:2] for k, v in batch.items()}
-    gpu32 = make_eval_step(build_model(cfg32, device="cuda", seed=0), "FreiHand", cfg32)(small)
-    cpu32 = make_eval_step(build_model(cfg32, device="cpu", seed=0), "FreiHand", cfg32)(
-        {k: v.cpu() for k, v in small.items()})
+    if aa_mode == "msaa":  # the flagship in fp32 on 2 images
+        cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+        eval_card_vs_cpu(cfg32, {k: v[:2].cpu() for k, v in batch.items()}, "the flagship, 2 images")
+    else:
+        eval_card_vs_cpu(Config(**dict(SLICE_CFG, aa_mode=aa_mode)), slice_batch(),
+                         "res18, 32 px, 8 images")
+
+    torch.cuda.reset_peak_memory_stats()
+    print(f"{aa_mode} eval step: " + json.dumps(time_steps(lambda: step(batch), n)))
+    if profile:
+        profile_steps(step, batch)
+        if aa_mode == "msaa":
+            stage_times(model, batch)
+    return launches
+
+
+def eval_card_vs_cpu(cfg32, batch: dict, what: str) -> None:
+    """The fp32 eval step on the card (kernels) against the CPU (plain
+    versions) on a host batch."""
+    from hifihr_tpu_torch.models.hifihr import build_model
+    from hifihr_tpu_torch.training.steps import make_eval_step
+
+    gpu32 = make_eval_step(build_model(cfg32, device="cuda", seed=0), "FreiHand", cfg32)(
+        {k: v.cuda() for k, v in batch.items()})
+    cpu32 = make_eval_step(build_model(cfg32, device="cpu", seed=0), "FreiHand", cfg32)(batch)
     diffs = {k: (gpu32[k].cpu() - cpu32[k]).abs().max().item() for k in ("joints", "mano_verts", "j2d")}
     # a pixel whose nearest face flips between the two runs (ulp-level
     # geometry differences) differs by a whole colour or depth: count shares
     sil_mismatch = (gpu32["re_sil"].cpu() != cpu32["re_sil"]).float().mean().item()
     off = {k: ((gpu32[k].cpu() - cpu32[k]).abs() > 1e-4).float().mean().item()
            for k in ("re_img", "re_depth")}
-    print(f"fp32 card vs CPU on 2 images: max abs {diffs}, re_sil mismatch share {sil_mismatch}, "
-          f"share off by > 1e-4 {off}")
+    print(f"fp32 {cfg32.aa_mode} eval step, card vs CPU ({what}): max abs {diffs}, re_sil mismatch "
+          f"share {sil_mismatch}, share off by > 1e-4 {off}")
     check(diffs["joints"] < 1e-5 and diffs["mano_verts"] < 1e-5, "joints and verts within 1e-5 m")
     check(diffs["j2d"] < 1e-3, "j2d within 1e-3 px")
     check(sil_mismatch <= 1e-3 and max(off.values()) <= 5e-3, "render agrees with the CPU plain path")
 
-    torch.cuda.reset_peak_memory_stats()
-    print("eval step: " + json.dumps(time_steps(lambda: step(batch))))
-    if profile:
-        profile_steps(step, batch)
-        stage_times(model, batch)
-    return launches
 
-
-def time_steps(run) -> dict:
-    """Median, min and max of STEPS steps each timed with CUDA events, the
-    mean of STEPS steps run back to back (host clock, synchronised), and
-    the peak memory since the caller's reset."""
+def time_steps(run, n: int) -> dict:
+    """Median, min and max of STEPS steps of n images each timed with CUDA
+    events, the mean of STEPS steps run back to back (host clock,
+    synchronised), and the peak memory since the caller's reset."""
     times = []
     for _ in range(STEPS):
         e0 = torch.cuda.Event(enable_timing=True)
@@ -334,25 +501,27 @@ def time_steps(run) -> dict:
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) / STEPS * 1e3
     med = statistics.median(times)
-    return {"batch": B, "image_size": S, "steps": STEPS, "median_ms": med,
-            "images_per_s": B / med * 1e3, "min_ms": min(times), "max_ms": max(times),
+    return {"batch": n, "image_size": S, "steps": STEPS, "median_ms": med,
+            "images_per_s": n / med * 1e3, "min_ms": min(times), "max_ms": max(times),
             "back_to_back_ms": wall_ms, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
 
 
 def reset_launches() -> None:
-    from hifihr_tpu_torch.render import gather, raster_msaa
+    from hifihr_tpu_torch.render import gather, raster, raster_msaa
 
     raster_msaa.rasterize_msaa.launches = 0
     gather.gather_rows.launches = 0
     gather.scatter_rows.launches = 0
+    raster.rasterize_face_id.launches = 0
 
 
 def read_launches() -> dict:
-    from hifihr_tpu_torch.render import gather, raster_msaa
+    from hifihr_tpu_torch.render import gather, raster, raster_msaa
 
     return {"K1 msaa_raster": raster_msaa.rasterize_msaa.launches,
             "K2 gather_rows": gather.gather_rows.launches,
-            "K3 scatter_rows": gather.scatter_rows.launches}
+            "K3 scatter_rows": gather.scatter_rows.launches,
+            "K4 face_raster": raster.rasterize_face_id.launches}
 
 
 def slice_batch(n: int = 8, size: int = 32) -> dict:
@@ -390,7 +559,7 @@ def one_train_step(cfg, batch: dict, device: str):
             {n: p.grad.detach().cpu().clone() for n, p in model.named_parameters()})
 
 
-def phase_train_step(batch: dict, profile: bool) -> dict:
+def phase_train_step(batch: dict, profile: bool, aa_mode: str = "msaa") -> dict:
     from hifihr_tpu_torch.config import Config
     from hifihr_tpu_torch.losses.stack import LossComputer
     from hifihr_tpu_torch.models.hifihr import build_model
@@ -398,8 +567,9 @@ def phase_train_step(batch: dict, profile: bool) -> dict:
     from hifihr_tpu_torch.training.train_state import create_train_state
 
     cfg = Config(pretrain="res50", hand_model="mano", render=True, light_estimation=True,
-                 image_size=S, aa_factor=3, aa_mode="msaa", compute_dtype="bfloat16",
+                 image_size=S, aa_factor=AA, aa_mode=aa_mode, compute_dtype="bfloat16",
                  losses=LOSSES, optimizer="Adam", init_lr=1e-3)
+    images = batch["imgs"].shape[0]
     model = build_model(cfg, device="cuda", seed=0)
     state = create_train_state(model, cfg, batch)
     step = make_train_step(model, LossComputer(cfg), "FreiHand", cfg)
@@ -416,15 +586,17 @@ def phase_train_step(batch: dict, profile: bool) -> dict:
     torch.cuda.synchronize()
     launches = read_launches()
     totals.append(d["total"])
-    print(f"train step launches: {launches}")
-    check(all(n > 0 for n in launches.values()), f"K1, K2 and K3 ran on the train path: {launches}")
+    print(f"{aa_mode} train step launches: {launches}")
+    path = PATH_KERNELS[aa_mode]
+    check(all(launches[k] > 0 for k in path) and sum(launches[k] for k in path) == sum(launches.values()),
+          f"{', '.join(path)} and no other kernel ran on the {aa_mode} train path: {launches}")
     losses = {k: v.item() for k, v in d.items()}
-    print("train step losses: " + json.dumps(losses))
+    print(f"{aa_mode} train step losses: " + json.dumps(losses))
     check(set(losses) == set(FIRED) | {"skipped"}, f"the 15 terms, total and skipped: {sorted(losses)}")
     check(all(np.isfinite(v) for v in losses.values()), "loss terms finite")
     check(losses["skipped"] == 0.0, "the step was not skipped")
     changed = (state.optimizer.flat != before).float().mean().item()
-    print(f"train step changed {changed:.4f} of the {before.numel()} trained parameters")
+    print(f"{aa_mode} train step changed {changed:.4f} of the {before.numel()} trained parameters")
     check(changed > 0.5, "the parameters changed")
 
     # no host sync: first list every synchronising call of one step, then
@@ -445,36 +617,36 @@ def phase_train_step(batch: dict, profile: bool) -> dict:
     finally:
         torch.cuda.set_sync_debug_mode(0)
     totals.append(d["total"])
-    print("train step: one step ran under set_sync_debug_mode('error'), no host sync")
+    print(f"{aa_mode} train step: one step ran under set_sync_debug_mode('error'), no host sync")
     for _ in range(10 - len(totals)):
         state, d = step(state, batch, sched)
         totals.append(d["total"])
     trajectory = [t.item() for t in totals]
-    print("train loss trajectory (10 steps): " + json.dumps(trajectory))
+    print(f"{aa_mode} train loss trajectory (10 steps): " + json.dumps(trajectory))
     check(all(np.isfinite(trajectory)) and int(state.step) == 10, f"10 updates taken ({int(state.step)})")
 
     # fp32 on the card (kernels) against fp32 on the CPU (plain versions), in
     # the train-slice test's configuration. At the flagship's (res50, 224^2,
     # random init) one ulp of input moves the CPU's own encoder gradients by
     # 3%, so no tighter bound could hold there (ROADMAP.md section 3)
-    small_cfg = Config(**SLICE_CFG)
+    small_cfg = Config(**dict(SLICE_CFG, aa_mode=aa_mode))
     small = slice_batch()
     (gl, gg), (cl, cg) = one_train_step(small_cfg, small, "cuda"), one_train_step(small_cfg, small, "cpu")
     term_err = {k: abs(gl[k] - cl[k]) / max(abs(cl[k]), 1e-30) for k in FIRED}
     grad_err = {}
-    for n, ref in cg.items():
-        if n.startswith("hand_encoder.base_fc") and n.endswith(".bias"):
+    for name, ref in cg.items():
+        if name.startswith("hand_encoder.base_fc") and name.endswith(".bias"):
             continue  # zero in exact arithmetic: a bias that feeds a train-mode BatchNorm
         nr = ref.norm().item()
-        grad_err[n] = (gg[n] - ref).norm().item() / nr if nr > 0 else gg[n].norm().item()
+        grad_err[name] = (gg[name] - ref).norm().item() / nr if nr > 0 else gg[name].norm().item()
     worst = sorted(grad_err.items(), key=lambda kv: -kv[1])[:4]
-    print(f"fp32 train step (res18, 32 px), card vs CPU on 8 images: worst loss term rel err "
+    print(f"fp32 {aa_mode} train step (res18, 32 px), card vs CPU on 8 images: worst loss term rel err "
           f"{max(term_err.items(), key=lambda kv: kv[1])}, worst gradient rel L2 {worst}")
     check(max(term_err.values()) <= 1e-4, "loss terms within 1e-4 of the CPU plain path")
     check(max(grad_err.values()) <= 1e-3, "gradients within 1e-3 relative L2 of the CPU plain path")
 
     torch.cuda.reset_peak_memory_stats()
-    print("train step: " + json.dumps(time_steps(lambda: step(state, batch, sched))))
+    print(f"{aa_mode} train step: " + json.dumps(time_steps(lambda: step(state, batch, sched), images)))
     if profile:
         profile_steps(lambda b: step(state, b, sched), batch)
     return launches
@@ -552,7 +724,8 @@ def profile_steps(step, batch, n: int = 3) -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--profile", action="store_true", help="also profile a few eval and train steps")
+    ap.add_argument("--profile", action="store_true",
+                    help="also profile a few eval and train steps of each render mode")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs an NVIDIA GPU", file=sys.stderr)
@@ -574,13 +747,21 @@ def main() -> int:
 
     set_fp32_numerics()
     batch = flagship_batch("cuda")
-    table = phase_kernels(batch)
+    table = phase_kernels(batch) + [phase_k4(batch)]
     eval_launches = phase_eval_step(batch, args.profile)
     train_launches = phase_train_step(batch, args.profile)
+    ssaa_batch = {k: v[:SSAA_B] for k, v in batch.items()}
+    ssaa_eval_launches = phase_eval_step(ssaa_batch, args.profile, aa_mode="ssaa")
+    ssaa_train_launches = phase_train_step(ssaa_batch, args.profile, aa_mode="ssaa")
     for k in table:
-        own = train_launches if k["name"].startswith("K3") else eval_launches
-        k["launches"] = own[k["name"]]
-        k["launches_train_step"] = train_launches[k["name"]]
+        name = k["name"]
+        if name.startswith("K4"):
+            k["launches"], k["launches_train_step"] = ssaa_eval_launches[name], ssaa_train_launches[name]
+        else:
+            k["launches"] = (train_launches if name.startswith("K3") else eval_launches)[name]
+            k["launches_train_step"] = train_launches[name]
+        k["launches_ssaa_eval_step"] = ssaa_eval_launches[name]
+        k["launches_ssaa_train_step"] = ssaa_train_launches[name]
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -7,6 +7,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 ENCODERS = ("res18", "res50", "res101")
+AA_MODES = ("msaa", "ssaa")
 BASE_LOSS_FNS = ("L1", "L2")
 OPTIMIZERS = ("Adam", "AdamW")
 # the branches of losses/stack.py that the port has; the photometric triples
@@ -26,7 +27,8 @@ class Config:
     image_size: int = 224
     aa_factor: int = 3
     # 'msaa': the rasteriser tests aa_factor x aa_factor subsamples per pixel
-    # and shading runs once per pixel
+    # and shading runs once per pixel; 'ssaa': reference-exact, rasterise
+    # and shade at aa_factor x the resolution, then average-pool
     aa_mode: str = "msaa"
     # encoder compute dtype; parameters stay float32
     compute_dtype: str = "bfloat16"
@@ -70,8 +72,8 @@ class Config:
             raise ValueError(f"pretrain={self.pretrain!r}: the port has {ENCODERS}")
         if self.hand_model != "mano":
             raise NotImplementedError(f"hand_model={self.hand_model!r}: the port has 'mano' only")
-        if self.aa_mode != "msaa":
-            raise NotImplementedError(f"aa_mode={self.aa_mode!r}: the port has 'msaa' only")
+        if self.aa_mode not in AA_MODES:
+            raise NotImplementedError(f"aa_mode={self.aa_mode!r}: the port has {AA_MODES}")
         if self.rgb2hm:
             raise NotImplementedError("rgb2hm: the heatmap branch is not ported")
         if self.compute_dtype not in ("bfloat16", "float32"):

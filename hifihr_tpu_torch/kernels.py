@@ -37,6 +37,7 @@ SIGNATURES = {
     "raster_msaa": {"hifihr_msaa_raster": ([_P, _P, _I, _I, _I, _I, _P, _P, _P, _P], _I)},
     "gather_rows": {"hifihr_gather_rows": ([_P, _P, _I, _I, _I, _I, _P, _P], _I)},
     "scatter_rows": {"hifihr_scatter_rows": ([_P, _P, _I, _I, _I, _I, _P, _P], _I)},
+    "raster_face": {"hifihr_face_raster": ([_P, _I, _I, _I, _P, _P, _P], _I)},
 }
 
 _LOADED: dict[str, ctypes.CDLL] = {}

@@ -2,7 +2,7 @@
 hifihr_tpu/models/hifihr.py::HiFiHR and attach_j2d).
 
 encoder -> light estimator -> hand parameter heads -> MANO -> root-centering
--> MSAA render. Outputs keep the JAX keys and layouts: images NHWC, re_img
+-> MSAA or SSAA render (`config.aa_mode`). Outputs keep the JAX keys and layouts: images NHWC, re_img
 (B, S, S, 3), re_sil (B, S, S, 1) in {0, 255}, re_depth (B, S, S),
 maskRGBs. The encoder runs in `config.compute_dtype` (bf16 autocast on the
 card); everything after it runs in fp32.
@@ -47,7 +47,8 @@ class HiFiHR(nn.Module):
             self.vert_tex = nn.Parameter(torch.zeros(778, 3))
             self.renderer = PhongRenderer(
                 self.mano.faces_np, self.mano.v_template_np,
-                RenderSettings(image_size=config.image_size, aa_factor=config.aa_factor),
+                RenderSettings(image_size=config.image_size, aa_factor=config.aa_factor,
+                               aa_mode=config.aa_mode),
             )
 
     def _encoder_autocast(self, device: torch.device):

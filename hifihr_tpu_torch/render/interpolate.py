@@ -1,6 +1,18 @@
 """Barycentric recompute + attribute interpolation from a per-pixel face
-selection (counterpart of hifihr_tpu/render/interpolate.py::
-fragment_interpolate, per-vertex attributes only)."""
+selection (counterpart of hifihr_tpu/render/interpolate.py).
+
+MSAA path: `fragment_interpolate` (per-vertex attributes only), one K2 fetch
+of a packed face table, barycentrics projected onto the simplex.
+SSAA path: `barycentric_coords`, `interpolate_attribute` and
+`interpolate_face_attribute`, with JAX's semantics: area kept away from 0
+at +1e-12, barycentrics clipped to [-4, 5], zbuf = 1 / denom.
+
+Every per-pixel fetch goes through K2 (`gather_rows`, backward K3) with
+idx = face_id, so a background pixel (-1) reads a zero row and sends no
+gradient. JAX indexes background pixels with face 0 instead; there its
+bary and tri differ from the port's, but every output is masked to 0 on
+background, so the interpolated values and all gradients are the same.
+"""
 
 from __future__ import annotations
 
@@ -33,7 +45,7 @@ def fragment_interpolate(face_id: torch.Tensor, verts_screen: torch.Tensor,
     background pixels; `interpolate_rows` masks them."""
     B, H, W = face_id.shape
     table = pack_face_table(verts_screen, faces, vert_attrs)
-    pix = gather_rows(table, face_id.reshape(B, H * W).to(torch.int32).contiguous())
+    pix = gather_rows(table, _pixel_rows(face_id))
     return interpolate_rows(face_id, pix.reshape(B, H, W, table.shape[-1]))
 
 
@@ -78,3 +90,73 @@ def interpolate_rows(face_id: torch.Tensor, pix: torch.Tensor):
     mask = covered.to(dt)
     zbuf = torch.where(covered, (bary * z_tri).sum(-1), torch.full_like(az, float("inf")))
     return out * mask[..., None], mask, zbuf
+
+
+def _pixel_rows(face_id: torch.Tensor) -> torch.Tensor:
+    """K2's (B, H * W) int32 index from a (B, H, W) face selection."""
+    return face_id.reshape(face_id.shape[0], -1).to(torch.int32).contiguous()
+
+
+def barycentric_coords(face_id: torch.Tensor, verts_screen: torch.Tensor, faces: torch.Tensor) -> dict:
+    """face_id (B, H, W) int32 (-1 = background), verts_screen (B, V, 3)
+    [u, v, z] (differentiable), faces (F, 3) -> dict of
+      mask (B, H, W) coverage, bary (B, H, W, 3) perspective-correct
+      barycentrics, zbuf (B, H, W) camera depth (inf on background),
+      tri (B, H, W, 3, 3) the pixel's screen triangle (zeros on
+      background), pix_faces (B, H, W, 3) its vertex ids (face 0's on
+      background, as JAX), and face_id and faces for the interpolators."""
+    B, H, W = face_id.shape
+    dt = verts_screen.dtype
+    table = gather_face_rows(verts_screen, faces).contiguous()  # (B, F, 9)
+    tri = gather_rows(table, _pixel_rows(face_id)).reshape(B, H, W, 3, 3)
+    pix_faces = faces[face_id.clamp(min=0).long()]
+
+    u = (torch.arange(W, dtype=dt, device=tri.device) + 0.5).view(1, 1, W)
+    v = (torch.arange(H, dtype=dt, device=tri.device) + 0.5).view(1, H, 1)
+    ax, ay, az = tri[..., 0, 0], tri[..., 0, 1], tri[..., 0, 2]
+    bx, by, bz = tri[..., 1, 0], tri[..., 1, 1], tri[..., 1, 2]
+    cx, cy, cz = tri[..., 2, 0], tri[..., 2, 1], tri[..., 2, 2]
+    e0 = (cx - bx) * (v - by) - (cy - by) * (u - bx)
+    e1 = (ax - cx) * (v - cy) - (ay - cy) * (u - cx)
+    e2 = (bx - ax) * (v - ay) - (by - ay) * (u - ax)
+    area = e0 + e1 + e2
+    area = torch.where(area.abs() < 1e-12, torch.full_like(area, 1e-12), area)
+    w_affine = torch.stack([e0, e1, e2], dim=-1) / area[..., None]
+
+    # perspective-correct weights: wp_i ~ w_i / z_i
+    z_tri = torch.stack([az, bz, cz], dim=-1)
+    z_tri = torch.where(z_tri.abs() < 1e-8, torch.full_like(z_tri, 1e-8), z_tri)
+    wp = w_affine / z_tri
+    denom = wp.sum(-1, keepdim=True)
+    denom = torch.where(denom.abs() < 1e-12, torch.full_like(denom, 1e-12), denom)
+    bary = (wp / denom).clamp(-4.0, 5.0)  # sliver guard
+
+    covered = face_id >= 0
+    zbuf = torch.where(covered, 1.0 / denom[..., 0], torch.full_like(az, float("inf")))
+    return {"mask": covered.to(dt), "bary": bary, "zbuf": zbuf, "tri": tri, "pix_faces": pix_faces,
+            "face_id": face_id, "faces": faces}
+
+
+def _interpolate_corners(frag: dict, table: torch.Tensor) -> torch.Tensor:
+    """Per-pixel sum of bary-weighted corner rows of a (B, F, 3D) table,
+    masked to 0 on background -> (B, H, W, D)."""
+    B, H, W = frag["face_id"].shape
+    D = table.shape[-1] // 3
+    corners = gather_rows(table.contiguous(), _pixel_rows(frag["face_id"])).reshape(B, H, W, 3, D)
+    out = (frag["bary"][..., None] * corners).sum(-2)
+    return out * frag["mask"][..., None]
+
+
+def interpolate_attribute(frag: dict, vert_attrs: torch.Tensor) -> torch.Tensor:
+    """Interpolate per-vertex attributes (B, V, D) (differentiable) at covered
+    pixels -> (B, H, W, D)."""
+    return _interpolate_corners(frag, gather_face_rows(vert_attrs, frag["faces"]))
+
+
+def interpolate_face_attribute(frag: dict, face_id: torch.Tensor, face_attrs: torch.Tensor) -> torch.Tensor:
+    """Interpolate per-face-corner attributes (F, 3, D), batch-constant (a
+    seamed UV atlas: one vertex may carry other values in other faces), at
+    the pixels of `face_id` -> (B, H, W, D)."""
+    F, _, D = face_attrs.shape
+    table = face_attrs.reshape(1, F, 3 * D).expand(face_id.shape[0], F, 3 * D)
+    return _interpolate_corners(dict(frag, face_id=face_id), table)

@@ -1,12 +1,21 @@
-"""MSAA Phong renderer (counterpart of the MSAA branch of
-hifihr_tpu/render/renderer.py::PhongRenderer).
+"""Phong renderer (counterpart of hifihr_tpu/render/renderer.py::
+PhongRenderer with vertex colours), in two anti-aliasing modes:
 
-Pipeline: project with pixel intrinsics -> K1 face selection with
-aa_factor x aa_factor subsample coverage at base resolution -> barycentric
-interpolation of albedo and normals through K2 -> fragment positions from
-the pixel ray -> Phong shading -> RGB * coverage, coverage, depth.
+- 'msaa': project with pixel intrinsics -> K1 face selection with
+  aa_factor x aa_factor subsample coverage at base resolution -> barycentric
+  interpolation of albedo and normals through K2 -> fragment positions from
+  the pixel ray -> Phong shading -> RGB * coverage, coverage, depth.
+- 'ssaa' (reference-exact): project with the intrinsics scaled by
+  aa_factor -> K4 face selection at every pixel centre of the supersampled
+  image (no gradient, outside the checkpoint) -> barycentric interpolation
+  of [albedo | normals | points] through K2 -> Phong shading with the
+  interpolated points -> RGB * mask, mask, depth -> aa_factor x aa_factor
+  average pool. The differentiable part is recomputed in backward
+  (`torch.utils.checkpoint`, JAX's `jax.checkpoint`): its supersampled
+  activations are 9x the MSAA path's.
+
 Faces are always put in the Morton order of the template: face ids, and so
-the rasteriser's tie rule, are internal to the renderer.
+the rasterisers' tie rules, are internal to the renderer.
 """
 
 from __future__ import annotations
@@ -16,10 +25,13 @@ from typing import NamedTuple
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from hifihr_tpu_torch.render.interpolate import fragment_interpolate
+from hifihr_tpu_torch import constant
+from hifihr_tpu_torch.render.interpolate import (barycentric_coords, fragment_interpolate,
+                                                 interpolate_attribute)
 from hifihr_tpu_torch.render.mesh import vertex_normals
-from hifihr_tpu_torch.render.raster import project_to_screen
+from hifihr_tpu_torch.render.raster import project_to_screen, rasterize_face_id
 from hifihr_tpu_torch.render.raster_msaa import rasterize_msaa
 from hifihr_tpu_torch.render.shading import DirectionalLight, phong_shade
 
@@ -27,6 +39,7 @@ from hifihr_tpu_torch.render.shading import DirectionalLight, phong_shade
 class RenderSettings(NamedTuple):
     image_size: int = 224
     aa_factor: int = 3  # subsample grid per pixel axis
+    aa_mode: str = "msaa"  # 'msaa' | 'ssaa'
 
 
 def morton_face_order(template_verts, faces) -> np.ndarray:
@@ -47,6 +60,17 @@ def morton_face_order(template_verts, faces) -> np.ndarray:
 
     code = (spread(q[:, 0]) << 2) | (spread(q[:, 1]) << 1) | spread(q[:, 2])
     return np.argsort(code, kind="stable")
+
+
+def _scale_intrinsics(K: torch.Tensor, s: float) -> torch.Tensor:
+    """Pixel intrinsics of the image scaled by s: fx, fy, cx, cy times s."""
+    return K * constant([[s, 1.0, s], [1.0, s, s], [1.0, 1.0, 1.0]], K.device, K.dtype)
+
+
+def _avg_pool(x: torch.Tensor, k: int) -> torch.Tensor:
+    """(B, H, W, C) -> (B, H / k, W / k, C), the mean of each k x k block."""
+    b, h, w, c = x.shape
+    return x.reshape(b, h // k, k, w // k, k, c).mean(dim=(2, 4))
 
 
 def _pixel_ray_points(zbuf, mask, K, size):
@@ -86,15 +110,35 @@ class PhongRenderer(nn.Module):
                                               samples=s.aa_factor)
         return face_id, coverage
 
+    def select_faces_ssaa(self, verts_cam: torch.Tensor, K: torch.Tensor):
+        """(face_id, zbuf) at the supersampled resolution through K4; K holds
+        the base image's intrinsics."""
+        s = self.settings
+        K_big = _scale_intrinsics(K, float(s.aa_factor))
+        verts_screen = project_to_screen(verts_cam.detach(), K_big)
+        return rasterize_face_id(verts_screen, self.faces, s.image_size * s.aa_factor)
+
+    def rasterize(self, verts_cam: torch.Tensor, K: torch.Tensor):
+        """(frag, verts_screen) at the supersampled resolution: frag is
+        `barycentric_coords` of K4's face selection."""
+        K_big = _scale_intrinsics(K, float(self.settings.aa_factor))
+        face_id, _ = self.select_faces_ssaa(verts_cam, K)
+        verts_screen = project_to_screen(verts_cam, K_big)
+        return barycentric_coords(face_id, verts_screen, self.faces), verts_screen
+
     def forward(self, verts_cam: torch.Tensor, vert_colors: torch.Tensor, K: torch.Tensor,
                  light: DirectionalLight | None = None) -> torch.Tensor:
         """verts_cam (B, V, 3) camera space (z > 0 forward), vert_colors
         (B, V, 3) albedo, K (B, 3, 3) pixel intrinsics ->
-        (B, S, S, 5) [rgb * coverage, coverage, camera z (0 on background)]."""
+        (B, S, S, 5) [rgb * coverage, coverage, camera z (0 on background)];
+        in 'ssaa' mode each channel is the mean of its aa_factor^2
+        supersampled pixels."""
         s = self.settings
         if light is None:
             light = DirectionalLight.default(verts_cam.shape[0], verts_cam.dtype,
                                              verts_cam.device)
+        if s.aa_mode == "ssaa":
+            return self._forward_ssaa(verts_cam, vert_colors, K, light)
         face_id, coverage = self.select_faces(verts_cam, K)
 
         verts_screen = project_to_screen(verts_cam, K)
@@ -106,3 +150,24 @@ class PhongRenderer(nn.Module):
         rgb = rgb * coverage[..., None]
         covered = (coverage > 0).to(rgb.dtype)[..., None]
         return torch.cat([rgb, coverage[..., None], pix_p[..., 2:3] * covered], dim=-1)
+
+    def _forward_ssaa(self, verts_cam, vert_colors, K, light):
+        s = self.settings
+        K_big = _scale_intrinsics(K, float(s.aa_factor))
+        face_id, _ = self.select_faces_ssaa(verts_cam, K)
+        nc = vert_colors.shape[-1]
+
+        def shade(verts_cam, vert_colors):
+            frag = barycentric_coords(face_id, project_to_screen(verts_cam, K_big), self.faces)
+            attrs = torch.cat([vert_colors, vertex_normals(verts_cam, self.faces), verts_cam], dim=-1)
+            pix = interpolate_attribute(frag, attrs)
+            mask = frag["mask"]
+            pix_p = pix[..., nc + 3:nc + 6]
+            rgb = phong_shade(pix[..., :nc], pix[..., nc:nc + 3], pix_p, light) * mask[..., None]
+            covered = (mask > 0).to(rgb.dtype)[..., None]
+            rgba = torch.cat([rgb, mask[..., None], pix_p[..., 2:3] * covered], dim=-1)
+            return _avg_pool(rgba, s.aa_factor)
+
+        if not torch.is_grad_enabled():  # eval under inference_mode: nothing to recompute
+            return shade(verts_cam, vert_colors)
+        return checkpoint(shade, verts_cam, vert_colors, use_reentrant=False, preserve_rng_state=False)

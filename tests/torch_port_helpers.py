@@ -72,6 +72,35 @@ def jax_msaa_select_op_by_op(self, verts_cam, K_base):
                              jax.lax.stop_gradient(K_base), self.faces)
 
 
+def jax_ssaa_select_op_by_op(self, verts_cam, K_big, big, record=None):
+    """Stands in for hifihr_tpu's PhongRenderer._select_faces (the SSAA face
+    selection): raster_jax.rasterize_face_id run op by op under
+    `jax.disable_jit()` in a host callback, so no face id hangs on XLA's
+    multiply-add contraction (the interpreted Pallas kernel contracts too,
+    and op by op it is too slow at 1538 faces). Appends each call's face ids
+    to `record` when one is given. The callback takes stop-gradient inputs,
+    so it also runs inside jax.grad."""
+    import jax
+    import jax.numpy as jnp
+
+    from hifihr_tpu.render import raster_jax
+
+    def host(verts, K, faces):
+        with jax.disable_jit():
+            vs = raster_jax.project_to_screen(jnp.asarray(verts), jnp.asarray(K))
+            fid, zbuf = raster_jax.rasterize_face_id(vs, jnp.asarray(faces), big,
+                                                     chunk=self.settings.face_chunk)
+        if record is not None:
+            record.append(np.asarray(fid))
+        return np.asarray(fid), np.asarray(zbuf)
+
+    b = verts_cam.shape[0]
+    out = (jax.ShapeDtypeStruct((b, big, big), jnp.int32),
+           jax.ShapeDtypeStruct((b, big, big), jnp.float32))
+    return jax.pure_callback(host, out, jax.lax.stop_gradient(verts_cam),
+                             jax.lax.stop_gradient(K_big), self.faces)
+
+
 def rel_l2(a, b) -> float:
     """||a - b|| / ||b||."""
     a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
