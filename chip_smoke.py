@@ -7,29 +7,39 @@ over a few eval steps and a few train steps of both render modes. Phases:
   1. the card's name and power limit (nvidia-smi)
   2. build the CUDA kernels from hifihr_tpu_torch/csrc/ into
      build/hifihr_tpu_torch/ (one nvcc per source, in parallel)
-  3. K1 (MSAA face selection) against its plain PyTorch version on 64 posed
-     MANO meshes at 224^2: face_id, coverage and zbuf exactly equal
+  3. K1 (MSAA face selection: a zero fill, a bin kernel and a fine kernel)
+     against its plain PyTorch version on 64 posed MANO meshes at 224^2,
+     on a crafted 64^2 scene of tile-bin edge cases (`bin_edge_scene`) and
+     on K4's crafted scene: face_id, coverage and zbuf exactly equal; the
+     route's time, each launch's device time (torch.profiler), the pairs it
+     walks and its bound
   4. K2 (per-pixel row gather) against its plain version on the table and
      face ids of phase 3, (64, 1538, 27) x (64, 50176): bit-equal
   5. K3 (the scatter-add backward of K2) against its plain version on the
      render's real backward input: the (64, 50176, 27) gradient that an L1
      loss on the shaded phase-3 render sends to K2's output, and K1's face
-     ids. fp32 atomics on both sides, so each entry summed from n rows is
-     held within 2 (n - 1) 2^-24 sum|g| of the other
+     ids. fp32 sums in varying order on both sides, and fp32 atomics that
+     flush subnormals to zero, so each entry summed from n rows is held
+     within 2 ((n - 1) 2^-24 sum|g| + n 2^-126) of the other
   6. the flagship eval step (ResNet-50 + MANO + MSAA render, batch 64,
      224^2, bf16 encoder, seeded random weights): K1 and K2 launched, the
      outputs finite and the silhouette non-empty; the same step in fp32 on
      the card against the plain versions on the CPU on two images; the
      median step time and images/s over 15 steps (CUDA events)
   7. the flagship train step (the same model and batch, the bench losses,
-     backward through the render, Adam): K1, K2 and K3 launched, the 15
-     loss terms and the total finite and the step not skipped, the
-     parameters changed, a 10-step loss trajectory, one step under
-     torch.cuda.set_sync_debug_mode("error") (no host sync), the fp32 step
-     on the card against the plain versions on the CPU in the train-slice
-     test's configuration (res18, 32 px, 8 images; loss terms within 1e-4,
-     each gradient within 1e-3 relative L2), the median step time and
-     images/s over 15 steps, and the peak memory
+     backward through the render, Adam): K1 (each of its three launches),
+     K2 and K3 launched, the 15 loss terms and the total finite and the
+     step not skipped, the parameters changed, a 10-step loss trajectory,
+     one step under torch.cuda.set_sync_debug_mode("error") (no host sync),
+     the fp32 step on the card against the plain versions on the CPU in the
+     train-slice test's configuration (res18, 32 px, 8 images; loss terms
+     within 1e-4, each gradient within 1e-3 relative L2), the median step
+     time and images/s over 15 steps, and the peak memory; then K1 and K3
+     on the step's own inputs, captured at its first step (the seeded
+     init's hand) and at a step after the timed ones (the hand the updates
+     have grown): K1 exactly equal to its plain version and K3 within its
+     atomics bound, with coverage, rows of the largest face, pairs, time,
+     each launch's time and bound
   8. K4 (SSAA face selection) against its plain version on the first 8
      meshes of phase 3 projected at K * 3 to 672^2, and on a crafted 64^2
      scene (a vertex at z <= 1e-6, a zero-area face, both windings, two
@@ -42,15 +52,19 @@ over a few eval steps and a few train steps of both render modes. Phases:
      over 15 steps; the fp32 SSAA eval step on the card against the CPU in
      the train-slice test's configuration (res18, 32 px, 8 images)
  10. the SSAA train step (the same model and batch of 8): the checks of
-     phase 7, with K4, K2 and K3 launched and the card-against-CPU step in
-     the train-slice test's configuration with aa_mode="ssaa"
- 11. one `{"kernels": [...]}` line: per kernel its time, launches in one
-     step of its path (K1 and K2 the eval step, K3 the train step, K4 the
+     phase 7, with K4, K2 and K3 launched, the card-against-CPU step in the
+     train-slice test's configuration with aa_mode="ssaa", and K3 on each of
+     the step's two launches at both captured steps
+ 11. one `{"kernels": [...]}` line: per kernel its time (K1 the whole route,
+     its launches' device times under `parts_ms`), launches in one step of
+     its path (K1 routes and K2 the eval step, K3 the train step, K4 the
      SSAA eval step; the train step of each path under
      `launches_train_step`, and every kernel's count in the SSAA steps under
      `launches_ssaa_eval_step` and `launches_ssaa_train_step`), error
      against the plain version, the plain version's time, the bound and,
-     for K2 and K3, one PyTorch call's time (indexing; `index_add_`)
+     for K2 and K3, one PyTorch call's time (indexing; `index_add_`); K1
+     and K3 carry their numbers on the train steps' inputs under
+     `train_hand`
 
 Any failed check raises, so the exit code is nonzero; so it is without CUDA.
 The last line is {"ok": true, "device": {...}}.
@@ -59,6 +73,7 @@ The last line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -155,27 +170,203 @@ def posed_meshes(batch: dict, seed: int = 1):
     return verts, vs, faces, attrs
 
 
-def box_pairs(bbox: torch.Tensor, size: int) -> int:
-    """(pixel, face) pairs whose face box touches the pixel in a size^2
-    image: the work K1 or K4 needs for these inputs, however it culls.
-    bbox (B, F, 4) [umin, umax, vmin, vmax], inf for a face that never
-    counts."""
+def box_pairs(bbox: torch.Tensor, size: int, cell: tuple = (1, 1)) -> int:
+    """(cell, face) pairs whose face box touches the cell, for cells of
+    cell[0] x cell[1] pixels (u, v) over a size^2 image. With 1 x 1 cells,
+    the (pixel, face) pairs: the work K1 or K4 needs for these inputs,
+    however it culls. bbox (B, F, 4) [umin, umax, vmin, vmax], inf for a
+    face that never counts."""
     valid = torch.isfinite(bbox[..., 0])
     bb = torch.where(valid[..., None], bbox, torch.zeros_like(bbox))
-    x0 = bb[..., 0].floor().clamp(0, size - 1)
-    x1 = bb[..., 1].floor().clamp(0, size - 1)
-    y0 = bb[..., 2].floor().clamp(0, size - 1)
-    y1 = bb[..., 3].floor().clamp(0, size - 1)
-    on = valid & (bb[..., 1] >= 0) & (bb[..., 0] < size) & (bb[..., 3] >= 0) & (bb[..., 2] < size)
-    n = (x1 - x0 + 1) * (y1 - y0 + 1)
-    return int(torch.where(on, n, torch.zeros_like(n)).sum().item())
+    (cu, cv), counts = cell, []
+    for lo, hi, c in ((bb[..., 0], bb[..., 1], cu), (bb[..., 2], bb[..., 3], cv)):
+        n = -(-size // c)
+        counts.append(((hi / c).floor().clamp(0, n - 1) - (lo / c).floor().clamp(0, n - 1) + 1,
+                       (hi >= 0) & (lo < n * c)))
+    n = counts[0][0] * counts[1][0]
+    return int(torch.where(valid & counts[0][1] & counts[1][1], n, torch.zeros_like(n)).sum().item())
 
 
-def walked_pairs(bbox: torch.Tensor, size: int, tile: int = 16) -> int:
+def tile_pairs(bbox: torch.Tensor, size: int, tile: int = 16) -> int:
     """(pixel, listed face) pairs a tile-culling rasteriser walks: each face
     is listed by every tile its box touches, and all the tile's pixels test
-    it."""
-    return box_pairs(bbox / tile, -(-size // tile)) * tile * tile
+    it (K4, and K1 before its warp culling)."""
+    return box_pairs(bbox, size, (tile, tile)) * tile * tile
+
+
+def walked_pairs(bbox: torch.Tensor, size: int) -> int:
+    """(pixel, tested face) pairs K1's fine kernel walks: a warp tests a
+    listed face at its 32 pixels when the face's box touches the warp's
+    16 x 2 pixel footprint."""
+    return box_pairs(bbox, size, (16, 2)) * 32
+
+
+def bin_edge_scene():
+    """A 64^2 screen-space scene for K1's binning into 16 px tiles, as numpy
+    (verts (2, V, 3) [u, v, z], faces (F, 3)): boxes that end exactly on a
+    tile edge and just inside one, slivers, a face over four tiles, a face
+    off the screen's edge, two identical faces (9 wins the tie) and an edge
+    through a column of subsamples. Image 1 mirrors image 0 in u, so its
+    faces wind the other way and its box edges still lie on tile edges."""
+    tris = [
+        [(4, 4, .5), (16, 4, .5), (16, 14, .5)],            # 0: right edge on the tile edge u = 16
+        [(17, 18, .6), (31.99, 20, .6), (31.99, 30, .6)],   # 1: right edge just inside u = 32
+        [(36, 20, .5), (46, 32, .5), (38, 32, .5)],         # 2: bottom edge on the tile edge v = 32
+        [(48, 4, .5), (60, 4, .5), (48, 14, .5)],           # 3: left edge on the tile edge u = 48
+        [(47.99, 36, .5), (60, 38, .5), (50, 46, .5)],      # 4: a corner just inside u = 48
+        [(20, 4, .5), (30, 16, .5), (20, 16, .5)],          # 5: bottom edge on the tile edge v = 16
+        [(2, 40, .4), (62, 41, .4), (62, 41.05, .4)],       # 6: a thin sliver across four tiles
+        [(33.45, 2, .4), (33.55, 2, .4), (33.55, 62, .4)],  # 7: a 0.1 px sliver down four tiles
+        [(24, 24, .3), (40, 26, .45), (30.3, 39.7, .6)],    # 8: a face over four tiles
+        [(50, 50, .5), (62, 52, .5), (54, 62, .5)],         # 9 and 10: the same face
+        [(50, 50, .5), (62, 52, .5), (54, 62, .5)],
+        [(5.5, 50, .5), (12, 50, .5), (5.5, 60, .5)],       # 11: an edge through subsamples
+        [(-6, 56, .45), (6, 58, .45), (-2, 70, .45)],       # 12: over the screen's edge
+    ]
+    v = np.asarray(tris, np.float32).reshape(1, -1, 3)
+    mirror = v.copy()
+    mirror[..., 0] = 64.0 - mirror[..., 0]
+    return np.concatenate([v, mirror]), np.arange(v.shape[1], dtype=np.int32).reshape(-1, 3)
+
+
+def device_ms(fn, reps: int = 20) -> dict:
+    """Mean device time of one launch of each kernel or memset `fn` makes,
+    by name, from torch.profiler over `reps` calls after one warm-up call
+    and one traced but not counted: {name: (ms per launch, launches seen)}.
+    The profiler can miss launches (one profile on an H100 saw 2.3 of K1's
+    3 per route), so the mean is over the launches it saw, and no count is
+    read from it."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=reps, repeat=1)) as prof:
+        for _ in range(reps + 1):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    return {e.key: (e.self_device_time_total / e.count / 1e3, e.count) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+            and not e.key.startswith("ProfilerStep")}  # the schedule's step annotations
+
+
+K1_PARTS = ("zero_fill", "bin", "fine")  # K1's route, one launch each
+
+
+def k1_launches_per_route(fn) -> int:
+    """The launches one call of `fn` makes in K1's route, as the C route
+    counts them where it enqueues each one."""
+    from hifihr_tpu_torch.render import raster_msaa as k1
+
+    before = k1.rasterize_msaa.device_launches, k1.rasterize_msaa.launches
+    fn()
+    routes = k1.rasterize_msaa.launches - before[1]
+    check(routes == 1, f"one K1 route per call ({routes})")
+    return k1.rasterize_msaa.device_launches - before[0]
+
+
+def k1_route(coef: torch.Tensor, bbox: torch.Tensor, what: str, size: int = S) -> dict:
+    """K1's route against its plain version on the prep's records (face_id,
+    coverage and zbuf exactly equal), then its time, the launches of one
+    route as the C route counts them (a zero fill, the bin kernel and the
+    fine kernel: 3), each launch's device time (torch.profiler), the pairs
+    it walks and its bound."""
+    from hifihr_tpu_torch.render import raster_msaa as k1
+
+    fid, cov, zb = k1.msaa_select_cuda(coef, bbox, size)
+    fid_p, cov_p, zb_p = k1.msaa_select_plain(coef, size)
+    torch.cuda.synchronize()
+    for name, a, b in (("face_id", fid, fid_p), ("coverage", cov, cov_p), ("zbuf", zb, zb_p)):
+        check(torch.equal(a, b), f"K1 {name} equals the plain version on {what} "
+                                 f"({(a != b).sum().item()} mismatches)")
+    covered = (fid_p >= 0).float().mean().item()
+    check(covered > 0.01, f"K1 scene covers pixels on {what}")
+    route = lambda: k1.msaa_select_cuda(coef, bbox, size)  # noqa: E731
+    per_route = k1_launches_per_route(route)
+    check(per_route == len(K1_PARTS), f"K1's route is a zero fill, a bin and a fine launch on {what}: "
+                                      f"{per_route} launches")
+    ms = time_ms(route, reps=20)
+    for _ in range(3):  # a profile that missed every launch of one part is taken again
+        parts = {}
+        for name, (t, _) in device_ms(route).items():
+            part = "bin" if "bin" in name else "fine" if "fine" in name else "zero_fill" if "emset" in name else name
+            parts[part] = parts.get(part, 0.0) + t
+        if set(parts) == set(K1_PARTS):
+            break
+    check(set(parts) == set(K1_PARTS), f"the profiler saw K1's three launches on {what}: {sorted(parts)}")
+    pairs = box_pairs(bbox, size)
+    nbytes = (coef.numel() + bbox.numel()) * 4 + 3 * fid.numel() * 4
+    bound_ms, bound_by = bound(nbytes, pairs * K1_OPS_PER_PAIR)
+    out = {"hand": what, "shape": list(coef.shape), "covered": covered, "box_pairs": pairs,
+           "walked_pairs": walked_pairs(bbox, size), "tile_pairs": tile_pairs(bbox, size),
+           "route_ms": ms, "parts_ms": parts, "launches_per_route": per_route,
+           "bound_ms": bound_ms, "bound_by": bound_by}
+    print(f"K1 on {what}: " + json.dumps(out))
+    return out
+
+
+def k3_launch(g: torch.Tensor, idx: torch.Tensor, n_rows: int, what: str) -> dict:
+    """K3 against its plain version on one input (within the atomics bound:
+    both sides sum in fp32 in varying order, and an entry of n rows lies
+    within (n - 1) 2^-24 sum|g| of the exact sum; fp32 atomics on the card
+    also flush subnormal operands and results to zero, which moves a sum by
+    less than 2^-126 per addition, n 2^-126 in all; so the two lie within
+    twice the sum of those). On long runs that bound is loose, so K3 also
+    sums ones at every element: fp32 adds of 1.0 are exact below 2^24, so
+    each entry must equal its face's row count, and a row dropped or added
+    twice shows. Then its time and bound."""
+    from hifihr_tpu_torch.render import gather
+
+    d3 = gather.scatter_rows(g, idx, n_rows)
+    ref = gather.scatter_rows_plain(g, idx, n_rows)
+    rows = gather.scatter_rows_plain(torch.ones_like(g[..., :1]), idx, n_rows)
+    counted = gather.scatter_rows(torch.ones_like(g), idx, n_rows)
+    abs_sum = gather.scatter_rows_plain(g.abs(), idx, n_rows)
+    torch.cuda.synchronize()
+    check(torch.equal(counted, rows.expand_as(counted)),
+          f"K3 sums of ones equal the row counts exactly on {what} "
+          f"({(counted != rows).sum().item()} entries differ)")
+    tol = 2.0 * ((rows - 1).clamp(min=0) * 2.0**-24 * abs_sum + rows * 2.0**-126)
+    err = (d3 - ref).abs().max().item()
+    check(tuple(d3.shape) == (g.shape[0], n_rows, g.shape[2]), f"K3 shape {tuple(d3.shape)} on {what}")
+    check(bool(((d3 - ref).abs() <= tol).all()), f"K3 within the atomics bound of the plain version on {what} ({err})")
+    check(g.abs().sum().item() > 0 and d3.abs().sum().item() > 0, f"K3 input and output non-zero on {what}")
+    covered = int(((idx >= 0) & (idx < n_rows)).sum().item())
+    # the bytes the work needs: idx, the rows of covered pixels, the output
+    bound_ms, bound_by = bound(idx.numel() * 4 + covered * g.shape[2] * 4 + d3.numel() * 4, covered * g.shape[2])
+    out = {"input": what, "shape": list(g.shape), "covered_rows": covered, "covered_share": covered / idx.numel(),
+           "largest_face_rows": int(rows.max().item()), "max_abs_err": err,
+           "ms": time_ms(lambda: gather.scatter_rows(g, idx, n_rows), reps=50),
+           "bound_ms": bound_ms, "bound_by": bound_by}
+    print(f"K3 on {what}: " + json.dumps(out))
+    return out
+
+
+@contextlib.contextmanager
+def captured_kernel_inputs():
+    """Record the inputs of every K1 route (coef, bbox, size) and every K3
+    launch (values, idx, n_rows) the port makes inside the block, by
+    wrapping the module functions its wrappers call; the kernels still
+    run, and their counts are untouched."""
+    from hifihr_tpu_torch.render import gather, raster_msaa
+
+    got = {"K1": [], "K3": []}
+    k1_fn, k3_fn = raster_msaa.msaa_select_cuda, gather._scatter
+
+    def k1(coef, bbox, image_size, samples=3):
+        got["K1"].append((coef.clone(), bbox.clone(), image_size))
+        return k1_fn(coef, bbox, image_size, samples)
+
+    def k3(values, idx, n_rows):
+        got["K3"].append((values.detach().clone(), idx.clone(), n_rows))
+        return k3_fn(values, idx, n_rows)
+
+    raster_msaa.msaa_select_cuda, gather._scatter = k1, k3
+    try:
+        yield got
+    finally:
+        raster_msaa.msaa_select_cuda, gather._scatter = k1_fn, k3_fn
 
 
 def bound(nbytes: int, ops: int = 0) -> tuple[float, str]:
@@ -184,12 +375,26 @@ def bound(nbytes: int, ops: int = 0) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def l1_render_grad(batch: dict, fid: torch.Tensor, cov: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """The gradient that an L1 loss on the shaded render sends to K2's
+    output `rows` (B, S * S, 27): K3's input on the MSAA path."""
+    from hifihr_tpu_torch.render.interpolate import interpolate_rows
+    from hifihr_tpu_torch.render.renderer import _pixel_ray_points
+    from hifihr_tpu_torch.render.shading import DirectionalLight, phong_shade
+
+    n = rows.shape[0]
+    pix = rows.detach().requires_grad_()
+    attrs_px, mask, zbuf = interpolate_rows(fid, pix.reshape(n, S, S, rows.shape[2]))
+    points = _pixel_ray_points(zbuf, mask, batch["Ks"], S)
+    rgb = phong_shade(attrs_px[..., :3], attrs_px[..., 3:6], points,
+                      DirectionalLight.default(n, device=pix.device)) * cov[..., None]
+    return torch.autograd.grad((rgb - batch["imgs"]).abs().mean(), pix)[0].contiguous()
+
+
 def phase_kernels(batch: dict) -> list:
     from hifihr_tpu_torch.render import gather as k2
     from hifihr_tpu_torch.render import raster_msaa as k1
-    from hifihr_tpu_torch.render.interpolate import interpolate_rows, pack_face_table
-    from hifihr_tpu_torch.render.renderer import _pixel_ray_points
-    from hifihr_tpu_torch.render.shading import DirectionalLight, phong_shade
+    from hifihr_tpu_torch.render.interpolate import pack_face_table
 
     _, vs, faces, attrs = posed_meshes(batch)
     fid, cov, zb = k1.rasterize_msaa(vs, faces, S)
@@ -204,6 +409,20 @@ def phase_kernels(batch: dict) -> list:
     check(torch.equal(zb, zb_p), "K1 zbuf equals the plain version")
     check(covered.float().mean().item() > 0.01, "K1 scene covers pixels")
     k1_err = max((cov - cov_p).abs().max().item(), (zb[covered] - zb_p[covered]).abs().max().item())
+    # the crafted scenes: K1's tile binning, and K4's edge cases
+    edge_vs, edge_faces = bin_edge_scene()
+    cvs, cfaces = crafted_scene(vs.device)
+    for what, sv, sf, won in (
+            ("the bin-edge scene", torch.tensor(edge_vs, device=vs.device),
+             torch.tensor(edge_faces, device=vs.device).long(), set(range(-1, 13)) - {10}),
+            ("K4's crafted scene", cvs, cfaces, {-1, 2, 3, 4})):
+        got = k1.rasterize_msaa(sv, sf, 64)
+        ref = k1.rasterize_msaa_plain(sv, sf, 64)
+        torch.cuda.synchronize()
+        seen = set(torch.unique(got[0]).tolist())
+        print(f"K1 on {what} (64^2): faces selected {sorted(seen)}")
+        check(all(torch.equal(a, b) for a, b in zip(got, ref)), f"K1 equals the plain version on {what}")
+        check(seen == won, f"K1 on {what}: the faces that win are {sorted(won)}, not {sorted(seen)}")
 
     table = pack_face_table(vs, faces, attrs)
     idx = fid.reshape(B, S * S).contiguous()
@@ -216,15 +435,11 @@ def phase_kernels(batch: dict) -> list:
     k2_err = (out - ref).abs().max().item()
     print(f"K2: bit-equal, {(idx >= 0).float().mean().item():.4f} of rows fetched")
 
-    coef, bbox = k1.msaa_prep(vs, faces)  # K1's inputs, timed apart from the kernel
-    k1_ms = time_ms(lambda: k1.msaa_select_cuda(coef, bbox, S), reps=20)
+    coef, bbox = k1.msaa_prep(vs, faces)  # K1's inputs, timed apart from the route
+    k1_eval = k1_route(coef, bbox, "the eval hand")
     k1_plain_ms = time_ms(lambda: k1.msaa_select_plain(coef, S), reps=1, groups=2)
     prep_ms = time_ms(lambda: k1.msaa_prep(vs, faces), reps=20)
-    pairs = box_pairs(bbox, S)
-    k1_bytes = (coef.numel() + bbox.numel()) * 4 + 3 * B * S * S * 4
-    k1_bound, k1_by = bound(k1_bytes, pairs * K1_OPS_PER_PAIR)
-    print(f"K1: kernel {k1_ms:.4f} ms, plain {k1_plain_ms:.2f} ms, shared prep {prep_ms:.4f} ms, "
-          f"{pairs} (pixel, face) pairs, {walked_pairs(bbox, S)} walked by the tiles")
+    print(f"K1: route {k1_eval['route_ms']:.4f} ms, plain {k1_plain_ms:.2f} ms, shared prep {prep_ms:.4f} ms")
 
     b_idx = torch.arange(B, device=idx.device)[:, None]
     k2_ms = time_ms(lambda: k2.gather_rows(table, idx), reps=50)
@@ -232,55 +447,35 @@ def phase_kernels(batch: dict) -> list:
     lib_ms = time_ms(lambda: table[b_idx, idx.clamp(min=0).long()] * (idx >= 0)[..., None], reps=20)
     k2_bound, k2_by = bound(table.numel() * 4 + idx.numel() * 4 + out.numel() * 4)
 
-    # K3 on the render's real backward input: the gradient that an L1 loss
-    # on the shaded render sends to K2's output
+    # K3 on the render's real backward input
     n_faces, row = table.shape[1], table.shape[2]
-    pix = out.detach().requires_grad_()
-    attrs_px, mask, zbuf = interpolate_rows(fid, pix.reshape(B, S, S, row))
-    points = _pixel_ray_points(zbuf, mask, batch["Ks"], S)
-    rgb = phong_shade(attrs_px[..., :3], attrs_px[..., 3:6], points,
-                      DirectionalLight.default(B, device=pix.device)) * cov[..., None]
-    g = torch.autograd.grad((rgb - batch["imgs"]).abs().mean(), pix)[0].contiguous()
-    d3 = k2.scatter_rows(g, idx, n_faces)
-    ref3 = k2.scatter_rows_plain(g, idx, n_faces)
-    torch.cuda.synchronize()
-    # both sides sum in fp32 with atomics; an entry of n rows lies within
-    # (n - 1) 2^-24 sum|g| of the exact sum
-    rows = k2.scatter_rows_plain(torch.ones_like(g[..., :1]), idx, n_faces)
-    abs_sum = k2.scatter_rows_plain(g.abs(), idx, n_faces)
-    tol = 2.0 * (rows - 1).clamp(min=0) * 2.0**-24 * abs_sum
-    k3_err = (d3 - ref3).abs().max().item()
-    check(tuple(d3.shape) == (B, n_faces, row), f"K3 shape {tuple(d3.shape)}")
-    check(bool(((d3 - ref3).abs() <= tol).all()), f"K3 within the atomics bound of the plain version ({k3_err})")
-    check(g.abs().sum().item() > 0 and d3.abs().sum().item() > 0, "K3 input and output non-zero")
-    covered_rows = int((idx >= 0).sum().item())
-    print(f"K3: max abs err {k3_err:.3e}, within bound; {covered_rows} covered rows read of {idx.numel()}; "
-          f"largest face {int(rows.max().item())} rows")
-    k3_ms = time_ms(lambda: k2.scatter_rows(g, idx, n_faces), reps=50)
+    g = l1_render_grad(batch, fid, cov, out)
+    k3_eval = k3_launch(g, idx, n_faces, "the MSAA render's backward input, eval hand")
     k3_plain_ms = time_ms(lambda: k2.scatter_rows_plain(g, idx, n_faces), reps=20)
     dst = torch.where(idx >= 0, idx.long() + b_idx * n_faces, B * n_faces).reshape(-1)
     g2 = g.reshape(-1, row)
     k3_lib_ms = time_ms(lambda: torch.zeros(B * n_faces + 1, row, device=g.device).index_add_(0, dst, g2),
                         reps=20)
-    # the bytes the work needs: idx, the gradient rows of covered pixels, the output
-    k3_bound, k3_by = bound(idx.numel() * 4 + covered_rows * row * 4 + d3.numel() * 4, covered_rows * row)
-    k3_bound_all, _ = bound(idx.numel() * 4 + g.numel() * 4 + d3.numel() * 4)
-    print(f"K3: kernel {k3_ms:.4f} ms, plain {k3_plain_ms:.4f} ms, index_add_ {k3_lib_ms:.4f} ms, "
-          f"bound {k3_bound:.4f} ms ({k3_by}; {k3_bound_all:.4f} ms if every gradient row were read)")
+    k3_bound_all, _ = bound(idx.numel() * 4 + g.numel() * 4 + B * n_faces * row * 4)
+    print(f"K3: kernel {k3_eval['ms']:.4f} ms, plain {k3_plain_ms:.4f} ms, index_add_ {k3_lib_ms:.4f} ms, "
+          f"bound {k3_eval['bound_ms']:.4f} ms ({k3_bound_all:.4f} ms if every gradient row were read)")
 
     kernels = [
         {"name": "K1 msaa_raster", "route": "cuda", "source": "hifihr_tpu_torch/csrc/raster_msaa.cu",
          "replaces": "hifihr_tpu/render/raster_msaa.py:68", "launches": None,
-         "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
-         "bound_by": k1_by, "library_ms": None},
+         "max_abs_err": k1_err, "ms": k1_eval["route_ms"], "parts_ms": k1_eval["parts_ms"],
+         "launches_per_route": k1_eval["launches_per_route"], "plain_ms": k1_plain_ms,
+         "bound_ms": k1_eval["bound_ms"], "bound_by": k1_eval["bound_by"], "library_ms": None,
+         "eval_hand": k1_eval},
         {"name": "K2 gather_rows", "route": "cuda", "source": "hifihr_tpu_torch/csrc/gather_rows.cu",
          "replaces": "hifihr_tpu/render/gather_mxu.py:64", "launches": None,
          "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
          "bound_by": k2_by, "library_ms": lib_ms},
         {"name": "K3 scatter_rows", "route": "cuda", "source": "hifihr_tpu_torch/csrc/scatter_rows.cu",
          "replaces": "hifihr_tpu/render/gather_mxu.py:87", "launches": None,
-         "max_abs_err": k3_err, "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound,
-         "bound_by": k3_by, "library_ms": k3_lib_ms},
+         "max_abs_err": k3_eval["max_abs_err"], "ms": k3_eval["ms"], "plain_ms": k3_plain_ms,
+         "bound_ms": k3_eval["bound_ms"], "bound_by": k3_eval["bound_by"], "library_ms": k3_lib_ms,
+         "eval_hand": k3_eval},
     ]
     return kernels
 
@@ -309,6 +504,16 @@ def face_boxes(tri: torch.Tensor) -> torch.Tensor:
     return torch.where(valid, box, torch.full_like(box, float("inf")))
 
 
+def ssaa_fetch_grads(idx: torch.Tensor, d_att: int) -> tuple:
+    """Seeded cotangents of the SSAA per-pixel corner fetch, zero on
+    background: (B, P, 9) for the screen triangle, (B, P, d_att) for the
+    attributes."""
+    covered = (idx >= 0)[..., None].float()
+    gen = torch.Generator(device=idx.device).manual_seed(0)
+    g_tri = torch.randn(*idx.shape, 9, device=idx.device, generator=gen) * covered
+    return g_tri, torch.randn(*idx.shape, d_att, device=idx.device, generator=gen) * covered
+
+
 def ssaa_fetch_times(vs: torch.Tensor, faces: torch.Tensor, fid: torch.Tensor, attrs: torch.Tensor) -> dict:
     """Forward and backward of the SSAA per-pixel corner fetch of the screen
     triangle (9 floats) and [albedo | normals | points] (27 floats): through
@@ -321,10 +526,7 @@ def ssaa_fetch_times(vs: torch.Tensor, faces: torch.Tensor, fid: torch.Tensor, a
 
     n, size = fid.shape[0], fid.shape[1]
     idx = fid.reshape(n, -1).contiguous()
-    covered = (idx >= 0)[..., None].float()
-    gen = torch.Generator(device=vs.device).manual_seed(0)
-    g_tri = torch.randn(n, idx.shape[1], 9, device=vs.device, generator=gen) * covered
-    g_att = torch.randn(n, idx.shape[1], 3 * attrs.shape[-1], device=vs.device, generator=gen) * covered
+    g_tri, g_att = ssaa_fetch_grads(idx, 3 * attrs.shape[-1])
     vs_r, at_r = vs.detach().requires_grad_(), attrs.detach().requires_grad_()
     b_idx = torch.arange(n, device=vs.device)[:, None, None, None]
     pix_faces = faces[fid.clamp(min=0).long()]
@@ -394,7 +596,7 @@ def phase_k4(batch: dict) -> dict:
     pairs = box_pairs(boxes, size)
     k4_bound, k4_by = bound(tri.numel() * 4 + 2 * fid.numel() * 4, pairs * K4_OPS_PER_PAIR)
     print(f"K4: kernel {k4_ms:.4f} ms, plain {k4_plain_ms:.2f} ms, {pairs} (pixel, face) pairs, "
-          f"{walked_pairs(boxes, size)} walked by the tiles, bound {k4_bound:.4f} ms ({k4_by})")
+          f"{tile_pairs(boxes, size)} walked by the tiles, bound {k4_bound:.4f} ms ({k4_by})")
 
     fetch = ssaa_fetch_times(vs, faces, fid, torch.cat([attrs, verts], dim=-1))
     print("SSAA corner fetch, forward + backward: " + json.dumps(fetch))
@@ -426,6 +628,7 @@ def phase_eval_step(batch: dict, profile: bool, aa_mode: str = "msaa") -> dict:
     out = step(batch)
     torch.cuda.synchronize()
     launches = read_launches()
+    check_k1_route_launches(launches, f"the {aa_mode} eval step")
     print(f"{aa_mode} eval step launches: {launches}")
     raster, gather, scatter = PATH_KERNELS[aa_mode]
     check(launches[raster] == 1 and launches[gather] > 0 and launches[scatter] == 0
@@ -510,6 +713,7 @@ def reset_launches() -> None:
     from hifihr_tpu_torch.render import gather, raster, raster_msaa
 
     raster_msaa.rasterize_msaa.launches = 0
+    raster_msaa.rasterize_msaa.device_launches = 0
     gather.gather_rows.launches = 0
     gather.scatter_rows.launches = 0
     raster.rasterize_face_id.launches = 0
@@ -522,6 +726,16 @@ def read_launches() -> dict:
             "K2 gather_rows": gather.gather_rows.launches,
             "K3 scatter_rows": gather.scatter_rows.launches,
             "K4 face_raster": raster.rasterize_face_id.launches}
+
+
+def check_k1_route_launches(launches: dict, what: str) -> None:
+    """Every K1 route of the run just read made its three launches, as the C
+    route counted them."""
+    from hifihr_tpu_torch.render import raster_msaa
+
+    made = raster_msaa.rasterize_msaa.device_launches
+    check(made == len(K1_PARTS) * launches["K1 msaa_raster"],
+          f"{len(K1_PARTS)} launches in each of the {launches['K1 msaa_raster']} K1 routes of {what}: {made}")
 
 
 def slice_batch(n: int = 8, size: int = 32) -> dict:
@@ -559,25 +773,37 @@ def one_train_step(cfg, batch: dict, device: str):
             {n: p.grad.detach().cpu().clone() for n, p in model.named_parameters()})
 
 
-def phase_train_step(batch: dict, profile: bool, aa_mode: str = "msaa") -> dict:
+def train_config(aa_mode: str):
+    """The flagship train step's configuration: the bench losses, Adam at
+    lr 1e-3."""
+    from hifihr_tpu_torch.config import Config
+
+    return Config(pretrain="res50", hand_model="mano", render=True, light_estimation=True,
+                  image_size=S, aa_factor=AA, aa_mode=aa_mode, compute_dtype="bfloat16",
+                  losses=LOSSES, optimizer="Adam", init_lr=1e-3)
+
+
+def phase_train_step(batch: dict, profile: bool, aa_mode: str = "msaa") -> tuple:
     from hifihr_tpu_torch.config import Config
     from hifihr_tpu_torch.losses.stack import LossComputer
     from hifihr_tpu_torch.models.hifihr import build_model
     from hifihr_tpu_torch.training.steps import make_sched, make_train_step
     from hifihr_tpu_torch.training.train_state import create_train_state
 
-    cfg = Config(pretrain="res50", hand_model="mano", render=True, light_estimation=True,
-                 image_size=S, aa_factor=AA, aa_mode=aa_mode, compute_dtype="bfloat16",
-                 losses=LOSSES, optimizer="Adam", init_lr=1e-3)
+    cfg = train_config(aa_mode)
     images = batch["imgs"].shape[0]
     model = build_model(cfg, device="cuda", seed=0)
     state = create_train_state(model, cfg, batch)
     step = make_train_step(model, LossComputer(cfg), "FreiHand", cfg)
     sched = make_sched(cfg, 0)
     totals = []
-    for _ in range(2):  # allocator warm-up; device constants made once
+    # the first step renders the seeded init's hand: keep the inputs K1 and
+    # K3 get there
+    with captured_kernel_inputs() as first:
         state, d = step(state, batch, sched)
-        totals.append(d["total"])
+    totals.append(d["total"])
+    state, d = step(state, batch, sched)  # allocator warm-up; device constants made once
+    totals.append(d["total"])
     torch.cuda.synchronize()
 
     before = state.optimizer.flat.clone()
@@ -585,11 +811,27 @@ def phase_train_step(batch: dict, profile: bool, aa_mode: str = "msaa") -> dict:
     state, d = step(state, batch, sched)
     torch.cuda.synchronize()
     launches = read_launches()
+    check_k1_route_launches(launches, f"the {aa_mode} train step")
     totals.append(d["total"])
     print(f"{aa_mode} train step launches: {launches}")
     path = PATH_KERNELS[aa_mode]
     check(all(launches[k] > 0 for k in path) and sum(launches[k] for k in path) == sum(launches.values()),
           f"{', '.join(path)} and no other kernel ran on the {aa_mode} train path: {launches}")
+    # K1 and K3 on the step's own inputs: the first step's here, freed before
+    # the timed steps, and a later step's at the end
+    hand = {"K1": [], "K3": []}
+
+    def kernels_on(got: dict, when: str) -> None:
+        check(len(got["K1"]) == launches["K1 msaa_raster"] and len(got["K3"]) == launches["K3 scatter_rows"],
+              f"one capture per K1 route and K3 launch of the {aa_mode} train step")
+        hand["K1"].extend(k1_route(coef, bbox, f"the {aa_mode} train step's hand at {when}", size)
+                          for coef, bbox, size in got["K1"])
+        hand["K3"].extend(k3_launch(g, idx, n, f"launch {i} of the {aa_mode} train step at {when}")
+                          for i, (g, idx, n) in enumerate(got["K3"]))
+        got["K1"].clear()
+        got["K3"].clear()
+
+    kernels_on(first, "step 1")
     losses = {k: v.item() for k, v in d.items()}
     print(f"{aa_mode} train step losses: " + json.dumps(losses))
     check(set(losses) == set(FIRED) | {"skipped"}, f"the 15 terms, total and skipped: {sorted(losses)}")
@@ -649,7 +891,12 @@ def phase_train_step(batch: dict, profile: bool, aa_mode: str = "msaa") -> dict:
     print(f"{aa_mode} train step: " + json.dumps(time_steps(lambda: step(state, batch, sched), images)))
     if profile:
         profile_steps(lambda b: step(state, b, sched), batch)
-    return launches
+
+    # a step after the timed ones, whose hand the updates have grown
+    with captured_kernel_inputs() as later:
+        state, _ = step(state, batch, sched)
+    kernels_on(later, f"step {int(state.step)}")
+    return launches, hand
 
 
 def stage_times(model, batch) -> None:
@@ -718,8 +965,11 @@ def profile_steps(step, batch, n: int = 3) -> None:
     print(f"profile: {n} steps, wall {wall_us / n / 1e3:.3f} ms/step, device busy "
           f"{dev_total / n / 1e3:.3f} ms/step ({dev_total / wall_us:.3f} of wall), "
           f"{n_launch / n:.0f} kernel launches/step")
-    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:25]:
-        print(f"  {e.self_device_time_total / n / 1e3:9.4f} ms/step  x{e.count // n:<4d} {e.key[:110]}")
+    ranked = sorted(rows, key=lambda e: -e.self_device_time_total)
+    ours = ("msaa_", "gather_rows", "scatter_rows", "face_raster", "Memset")  # the port's kernels
+    for i, e in enumerate(ranked):
+        if i < 25 or any(k in e.key for k in ours):
+            print(f"  {e.self_device_time_total / n / 1e3:9.4f} ms/step  x{e.count // n:<4d} {e.key[:110]}")
 
 
 def main() -> int:
@@ -749,10 +999,12 @@ def main() -> int:
     batch = flagship_batch("cuda")
     table = phase_kernels(batch) + [phase_k4(batch)]
     eval_launches = phase_eval_step(batch, args.profile)
-    train_launches = phase_train_step(batch, args.profile)
+    train_launches, train_hand = phase_train_step(batch, args.profile)
     ssaa_batch = {k: v[:SSAA_B] for k, v in batch.items()}
     ssaa_eval_launches = phase_eval_step(ssaa_batch, args.profile, aa_mode="ssaa")
-    ssaa_train_launches = phase_train_step(ssaa_batch, args.profile, aa_mode="ssaa")
+    ssaa_train_launches, ssaa_train_hand = phase_train_step(ssaa_batch, args.profile, aa_mode="ssaa")
+    table[0]["train_hand"] = train_hand["K1"] + ssaa_train_hand["K1"]
+    table[2]["train_hand"] = train_hand["K3"] + ssaa_train_hand["K3"]
     for k in table:
         name = k["name"]
         if name.startswith("K4"):

@@ -34,7 +34,7 @@ NVCC_FLAGS = (
 # c_void_p, so ctypes does not cut them to 32 bits.
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
-    "raster_msaa": {"hifihr_msaa_raster": ([_P, _P, _I, _I, _I, _I, _P, _P, _P, _P], _I)},
+    "raster_msaa": {"hifihr_msaa_raster": ([_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P], _I)},
     "gather_rows": {"hifihr_gather_rows": ([_P, _P, _I, _I, _I, _I, _P, _P], _I)},
     "scatter_rows": {"hifihr_scatter_rows": ([_P, _P, _I, _I, _I, _I, _P, _P], _I)},
     "raster_face": {"hifihr_face_raster": ([_P, _I, _I, _I, _P, _P, _P], _I)},

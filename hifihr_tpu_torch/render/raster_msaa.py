@@ -9,16 +9,27 @@ Counterpart of hifihr_tpu/render/raster_msaa.py (the Pallas TPU kernel
                          invalid faces inert) and screen bounding boxes
   rasterize_msaa_plain   plain PyTorch version, vectorised over pixels,
                          walking the faces in ascending chunks
-  rasterize_msaa         the wrapper: the CUDA kernel csrc/raster_msaa.cu for
-                         a CUDA tensor, the plain version for a CPU tensor
+  rasterize_msaa         the wrapper: for a CUDA tensor, the prep and then
+                         the route of csrc/raster_msaa.cu (`msaa_select_cuda`,
+                         three launches on the current stream: a zero fill of
+                         per-tile face bitmasks, a bin kernel that sets each
+                         face's bit in every 16x16 tile its box overlaps, and
+                         a fine kernel that walks each tile's faces in
+                         ascending order); for a CPU tensor the plain version
 
 Outputs: face_id (B, S, S) int32 (-1 on background), coverage (B, S, S)
 float32 = covered subsamples / samples^2, zbuf (B, S, S) float32 = the chosen
 face's z-plane at the pixel centre clamped to [zmin, zmax] (inf on
 background). The renderer recomputes its own depth and ignores zbuf.
+
+Launch counts: `rasterize_msaa.launches` counts routes (one per call on a
+CUDA tensor); `rasterize_msaa.device_launches` counts the route's launches
+(3 per route with F > 0), each counted by the C route where it enqueues it.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -27,6 +38,7 @@ from hifihr_tpu_torch import constant, kernels
 from hifihr_tpu_torch.render.mesh import gather_face_rows
 
 N_REC = 15  # floats per face record
+TILE = 16  # pixels per side of a tile of the CUDA route
 _INERT = np.zeros(N_REC, np.float32)  # the record of a face that never covers
 _INERT[2] = -1.0
 
@@ -149,8 +161,11 @@ def rasterize_msaa_plain(verts_screen: torch.Tensor, faces: torch.Tensor, image_
 
 def msaa_select_cuda(coef: torch.Tensor, bbox: torch.Tensor, image_size: int,
                      samples: int = 3):
-    """Launch csrc/raster_msaa.cu on the prep's records. Counts the launch on
-    `rasterize_msaa.launches`."""
+    """Launch the route of csrc/raster_msaa.cu on the prep's records: zero
+    fill of the (B, T, T, ceil(F / 32)) tile bitmasks (T = ceil(S / 16)),
+    bin kernel, fine kernel. Counts the route on `rasterize_msaa.launches`
+    and adds the launches the C route counted as it enqueued them to
+    `rasterize_msaa.device_launches`."""
     B, F, _ = coef.shape
     S = image_size
     if coef.device.type != "cuda" or bbox.device != coef.device:
@@ -166,14 +181,20 @@ def msaa_select_cuda(coef: torch.Tensor, bbox: torch.Tensor, image_size: int,
     if not 1 <= samples * samples <= 32 or B > 65535:
         raise ValueError(f"samples={samples}, B={B} outside the kernel's range")
     lib = kernels.load("raster_msaa")
+    tiles = -(-S // TILE)
+    mask = torch.empty((B, tiles, tiles, -(-F // 32)), dtype=torch.int32, device=coef.device)
     fid = torch.empty((B, S, S), dtype=torch.int32, device=coef.device)
     cov = torch.empty((B, S, S), dtype=torch.float32, device=coef.device)
     zbuf = torch.empty((B, S, S), dtype=torch.float32, device=coef.device)
+    launched = ctypes.c_int(0)
     err = lib.hifihr_msaa_raster(
-        coef.data_ptr(), bbox.data_ptr(), B, F, S, samples,
-        fid.data_ptr(), cov.data_ptr(), zbuf.data_ptr(), kernels.stream_ptr(coef.device))
+        coef.data_ptr(), bbox.data_ptr(), B, F, S, samples, mask.data_ptr(),
+        fid.data_ptr(), cov.data_ptr(), zbuf.data_ptr(), kernels.stream_ptr(coef.device),
+        ctypes.byref(launched))
+    rasterize_msaa.device_launches += launched.value
     kernels.check(err, "raster_msaa")
-    rasterize_msaa.launches += 1
+    if B and S:
+        rasterize_msaa.launches += 1
     return fid, cov, zbuf
 
 
@@ -191,3 +212,4 @@ def rasterize_msaa(verts_screen: torch.Tensor, faces: torch.Tensor, image_size: 
 
 
 rasterize_msaa.launches = 0
+rasterize_msaa.device_launches = 0

@@ -117,6 +117,19 @@ def test_k1_posed_mano(S, seed):
     _assert_k1_equal(jax_out, port_out)
 
 
+def test_k1_bin_edge_scene():
+    """The scene chip_smoke.py holds K1's CUDA route against (its tile
+    binning): boxes that end on 16 px tile edges and just inside them,
+    slivers, a face over four tiles, a face over the screen's edge, two
+    identical faces, both windings."""
+    from chip_smoke import bin_edge_scene
+
+    vs, faces = bin_edge_scene()
+    jax_out, port_out = _k1_both(vs, faces, 64)
+    assert set(np.unique(port_out[0]).tolist()) == set(range(-1, 13)) - {10}  # 9 wins the tie
+    _assert_k1_equal(jax_out, port_out)
+
+
 def test_k1_prep_matches_tpu_prep():
     """The shared prep's face records equal the TPU prep's packed records,
     bit for bit, when XLA rounds each operation on its own."""
@@ -193,31 +206,76 @@ def _segment_sum(values, idx, F):
     return ref
 
 
-@pytest.mark.parametrize("B,F,D,P", [(2, 37, 9, 300), (2, 1538, 27, 500), (1, 5000, 7, 400)])
-def test_k3_plain_matches_numpy_segment_sum(B, F, D, P):
+def _scanline_idx(B, P, F, rng, dropped=(-1,)):
+    """Face ids in scanline order as the train steps' large hand gives them:
+    runs of one id from 1 to 3000 rows long (every image holds a run of 3000
+    rows), about 85% of rows covered, ids from `dropped` between runs."""
+    idx = np.empty((B, P), np.int32)
+    for b in range(B):
+        p = rng.randint(0, P - 3000)
+        idx[b, p:p + 3000] = rng.randint(0, F)
+        for lo, hi in ((0, p), (p + 3000, P)):
+            while lo < hi:
+                n = min(hi - lo, int(rng.choice([1, 2, 3, 40, 300, 1500], p=[.2, .1, .1, .2, .3, .1])))
+                idx[b, lo:lo + n] = rng.randint(0, F) if rng.rand() < 0.85 else rng.choice(dropped)
+                lo += n
+    return idx
+
+
+@pytest.mark.parametrize("B,F,D,P,layout", [
+    pytest.param(2, 37, 9, 300, "random", id="2-37-9-300"),
+    pytest.param(2, 1538, 27, 500, "random", id="2-1538-27-500"),
+    pytest.param(1, 5000, 7, 400, "random", id="1-5000-7-400"),
+    pytest.param(2, 1538, 27, 6000, "runs", id="2-1538-27-6000-runs"),
+])
+def test_k3_plain_matches_numpy_segment_sum(B, F, D, P, layout):
     rng = np.random.RandomState(F + 1)
-    idx = rng.randint(-1, F + 3, size=(B, P)).astype(np.int32)  # -1 and >= F are dropped
+    if layout == "runs":
+        idx = _scanline_idx(B, P, F, rng, dropped=(-1, F, F + 2))
+    else:
+        idx = rng.randint(-1, F + 3, size=(B, P)).astype(np.int32)  # -1 and >= F are dropped
     ints = rng.randint(-50, 50, size=(B, P, D)).astype(np.float32)
     out = tgather.scatter_rows_plain(torch.tensor(ints), torch.tensor(idx), F).numpy()
     np.testing.assert_array_equal(out, _segment_sum(ints, idx, F).astype(np.float32))
     vals = rng.randn(B, P, D).astype(np.float32)
     out = tgather.scatter_rows_plain(torch.tensor(vals), torch.tensor(idx), F).numpy()
     ref = _segment_sum(vals, idx, F)
-    np.testing.assert_allclose(out, ref, rtol=1e-6, atol=1e-6 * np.abs(ref).max())
+    if layout == "runs":
+        # fp32 sums of n terms in any order lie within (n - 1) 2^-24 sum|v|
+        # of the exact sum; a run of 3000 rows needs that bound
+        n = _segment_sum(np.ones((B, P, 1)), idx, F)
+        tol = np.maximum(n - 1, 0) * 2.0**-24 * _segment_sum(np.abs(vals), idx, F)
+        assert np.all(np.abs(out - ref) <= tol)
+    else:
+        np.testing.assert_allclose(out, ref, rtol=1e-6, atol=1e-6 * np.abs(ref).max())
 
 
-@pytest.mark.parametrize("B,F,D,P,background", [(2, 37, 9, 300, 0.3), (2, 1538, 27, 2000, 0.5),
-                                                (1, 2500, 7, 600, 0.1), (2, 19, 5, 257, 1.0)])
-def test_k3_matches_tpu_scatter(B, F, D, P, background):
-    """F > 1024 spans two TPU table blocks; background 1.0 makes every row -1."""
+@pytest.mark.parametrize("B,F,D,P,layout", [(2, 37, 9, 300, 0.3), (2, 1538, 27, 2000, 0.5),
+                                            (1, 2500, 7, 600, 0.1), (2, 19, 5, 257, 1.0),
+                                            (2, 1538, 27, 6000, "runs")])
+def test_k3_matches_tpu_scatter(B, F, D, P, layout):
+    """F > 1024 spans two TPU table blocks; a layout of 1.0 makes every row
+    -1, a float the share of background rows at random, "runs" the train
+    steps' long runs of one face id (`_scanline_idx`)."""
     rng = np.random.RandomState(P)
     vals = rng.randn(B, P, D).astype(np.float32)
-    idx = rng.randint(0, F, size=(B, P)).astype(np.int32)
-    idx[rng.rand(B, P) < background] = -1
+    if layout == "runs":
+        idx = _scanline_idx(B, P, F, rng)
+    else:
+        idx = rng.randint(0, F, size=(B, P)).astype(np.int32)
+        idx[rng.rand(B, P) < layout] = -1
     out = tgather.scatter_rows(torch.tensor(vals), torch.tensor(idx), F).numpy()
     ref = np.asarray(jax_scatter_rows(jnp.asarray(vals), jnp.asarray(idx), F, True))
-    np.testing.assert_allclose(out, ref, rtol=3e-5, atol=3e-3)
-    if background == 1.0:
+    if layout == "runs":
+        # the TPU form sums hi + lo bf16 halves of each value (each within
+        # ~2^-17 of it) in fp32, so its error grows with sum|v| over the
+        # run: held at 2^-15 sum|v| per entry
+        tol = 2.0**-15 * _segment_sum(np.abs(vals), idx, F)
+        assert np.all(np.abs(out - ref) <= tol)
+        assert _segment_sum(np.ones((B, P, 1)), idx, F).max() >= 3000
+    else:
+        np.testing.assert_allclose(out, ref, rtol=3e-5, atol=3e-3)
+    if layout == 1.0:
         assert not out.any()
 
 
