@@ -40,31 +40,36 @@ over a few eval steps and a few train steps of both render modes. Phases:
      have grown): K1 exactly equal to its plain version and K3 within its
      atomics bound, with coverage, rows of the largest face, pairs, time,
      each launch's time and bound
-  8. K4 (SSAA face selection) against its plain version on the first 8
-     meshes of phase 3 projected at K * 3 to 672^2, and on a crafted 64^2
-     scene (a vertex at z <= 1e-6, a zero-area face, both windings, two
-     identical faces): face_id and zbuf exactly equal; and the SSAA
-     per-pixel corner fetch forward and backward through K2 and K3 (the
-     port's route) beside torch's advanced indexing (JAX's form)
+  8. K4 (SSAA face selection: a zero fill, a bin kernel and a fine kernel)
+     against its plain version on the first 8 meshes of phase 3 projected
+     at K * 3 to 672^2, on a crafted 64^2 scene (a vertex at z <= 1e-6, a
+     zero-area face, both windings, two identical faces), on the bin-edge
+     scene and on a NIMBLE-sized scene (`torus_scene`, 11,926 faces, 8
+     images at 672^2, about 12% and about 60% covered): face_id and zbuf
+     exactly equal; the route's time, each launch's device time, the pairs
+     it walks and its bound; and the SSAA per-pixel corner fetch forward and backward through K2 and K3
+     (the port's route) beside torch's advanced indexing (JAX's form)
   9. the SSAA eval step (the flagship with aa_mode="ssaa", batch 8, the
-     cell of bench.py:276-278): K4 launched once per step, the outputs
+     cell of bench.py:276-278): K4 launched once per step (its three
+     launches counted by the C route), the outputs
      finite and the silhouette non-empty, the median step time and images/s
      over 15 steps; the fp32 SSAA eval step on the card against the CPU in
      the train-slice test's configuration (res18, 32 px, 8 images)
  10. the SSAA train step (the same model and batch of 8): the checks of
      phase 7, with K4, K2 and K3 launched, the card-against-CPU step in the
      train-slice test's configuration with aa_mode="ssaa", and K3 on each of
-     the step's two launches at both captured steps
+     the step's two launches and K4 on its route at both captured steps
  11. one `{"kernels": [...]}` line: per kernel its time (K1 the whole route,
-     its launches' device times under `parts_ms`), launches in one step of
+     by CUDA events, as every kernel's `ms`; each launch's device time
+     under `parts_ms`, and for K4 their sum under `device_ms`), launches in one step of
      its path (K1 routes and K2 the eval step, K3 the train step, K4 the
      SSAA eval step; the train step of each path under
      `launches_train_step`, and every kernel's count in the SSAA steps under
      `launches_ssaa_eval_step` and `launches_ssaa_train_step`), error
      against the plain version, the plain version's time, the bound and,
-     for K2 and K3, one PyTorch call's time (indexing; `index_add_`); K1
-     and K3 carry their numbers on the train steps' inputs under
-     `train_hand`
+     for K2 and K3, one PyTorch call's time (indexing; `index_add_`); K1,
+     K3 and K4 carry their numbers on the train steps' inputs under
+     `train_hand`, K4 also on the NIMBLE-sized scenes (`nimble_sized`)
 
 Any failed check raises, so the exit code is nonzero; so it is without CUDA.
 The last line is {"ok": true, "device": {...}}.
@@ -194,11 +199,11 @@ def tile_pairs(bbox: torch.Tensor, size: int, tile: int = 16) -> int:
     return box_pairs(bbox, size, (tile, tile)) * tile * tile
 
 
-def walked_pairs(bbox: torch.Tensor, size: int) -> int:
-    """(pixel, tested face) pairs K1's fine kernel walks: a warp tests a
+def walked_pairs(bbox: torch.Tensor, size: int, footprint: tuple = (16, 2)) -> int:
+    """(pixel, tested face) pairs a fine kernel walks: a warp tests a
     listed face at its 32 pixels when the face's box touches the warp's
-    16 x 2 pixel footprint."""
-    return box_pairs(bbox, size, (16, 2)) * 32
+    pixel footprint (16 x 2 in K1's route, 8 x 4 in K4's)."""
+    return box_pairs(bbox, size, footprint) * 32
 
 
 def bin_edge_scene():
@@ -229,6 +234,44 @@ def bin_edge_scene():
     return np.concatenate([v, mirror]), np.arange(v.shape[1], dtype=np.int32).reshape(-1, 3)
 
 
+# the faces that win on `bin_edge_scene` at 64^2, in K1 and in K4: all but
+# 10, which loses the tie to 9
+BIN_EDGE_WINNERS = set(range(-1, 13)) - {10}
+
+
+def torus_scene(size: int, radius: float, seed: int, n: int = SSAA_B) -> tuple:
+    """A NIMBLE-sized screen-space scene for K4: a torus of 89 x 67
+    vertices, 2 * 89 * 67 = 11,926 faces (NIMBLE's count,
+    hifihr_tpu/config.py:201-205), in each of n images under its own seeded
+    rotation, so its near and far sides overlap, projected in perspective
+    about the image centre; `radius` is the torus's outer radius as a
+    share of the image size (`TORUS_RADII`). Returns numpy verts (n, 5963, 3) [u, v, z] and faces
+    (11926, 3)."""
+    rng = np.random.RandomState(seed)
+    nu, nv, R, r = 89, 67, 1.0, 0.4
+    th, ph = np.meshgrid(2 * np.pi * np.arange(nu) / nu, 2 * np.pi * np.arange(nv) / nv, indexing="ij")
+    ring = R + r * np.cos(ph)
+    p = np.stack([ring * np.cos(th), ring * np.sin(th), r * np.sin(ph)], -1).reshape(-1, 3)
+    i, j = np.meshgrid(np.arange(nu), np.arange(nv), indexing="ij")
+    a, b = i * nv + j, (i + 1) % nu * nv + j
+    c, d = (i + 1) % nu * nv + (j + 1) % nv, i * nv + (j + 1) % nv
+    faces = np.concatenate([np.stack([a, b, c], -1).reshape(-1, 3), np.stack([a, c, d], -1).reshape(-1, 3)])
+    verts = []
+    for _ in range(n):
+        q = rng.randn(4)
+        w, x, y, z = q / np.linalg.norm(q)  # a uniform random rotation
+        rot = np.array([[1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
+                        [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
+                        [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)]])
+        q3 = p @ rot.T
+        depth = q3[:, 2] + 4.0
+        centre = size / 2 + rng.uniform(-0.05, 0.05, 2) * size
+        scale = radius * size * 4.0 / (R + r)
+        verts.append(np.stack([centre[0] + scale * q3[:, 0] / depth, centre[1] + scale * q3[:, 1] / depth,
+                               depth], -1))
+    return np.asarray(verts, np.float32), faces.astype(np.int32)
+
+
 def device_ms(fn, reps: int = 20) -> dict:
     """Mean device time of one launch of each kernel or memset `fn` makes,
     by name, from torch.profiler over `reps` calls after one warm-up call
@@ -251,19 +294,33 @@ def device_ms(fn, reps: int = 20) -> dict:
             and not e.key.startswith("ProfilerStep")}  # the schedule's step annotations
 
 
-K1_PARTS = ("zero_fill", "bin", "fine")  # K1's route, one launch each
+ROUTE_PARTS = ("zero_fill", "bin", "fine")  # K1's and K4's routes, one launch each
 
 
-def k1_launches_per_route(fn) -> int:
-    """The launches one call of `fn` makes in K1's route, as the C route
-    counts them where it enqueues each one."""
-    from hifihr_tpu_torch.render import raster_msaa as k1
+def route_parts_ms(route, what: str) -> dict:
+    """Each launch's device time in one call of a route (zero fill, bin and
+    fine kernel) from torch.profiler; a profile that missed every launch of
+    one part is taken again."""
+    for _ in range(3):
+        parts = {}
+        for name, (t, _) in device_ms(route).items():
+            part = "bin" if "bin" in name else "fine" if "fine" in name else "zero_fill" if "emset" in name else name
+            parts[part] = parts.get(part, 0.0) + t
+        if set(parts) == set(ROUTE_PARTS):
+            break
+    check(set(parts) == set(ROUTE_PARTS), f"the profiler saw the route's three launches on {what}: {sorted(parts)}")
+    return parts
 
-    before = k1.rasterize_msaa.device_launches, k1.rasterize_msaa.launches
+
+def launches_per_route(fn, wrapper, what: str) -> int:
+    """The launches one call of `fn` makes in the route of `wrapper`
+    (rasterize_msaa for K1, rasterize_face_id for K4), as the C route counts
+    them where it enqueues each one."""
+    before = wrapper.device_launches, wrapper.launches
     fn()
-    routes = k1.rasterize_msaa.launches - before[1]
-    check(routes == 1, f"one K1 route per call ({routes})")
-    return k1.rasterize_msaa.device_launches - before[0]
+    routes = wrapper.launches - before[1]
+    check(routes == 1, f"one {what} route per call ({routes})")
+    return wrapper.device_launches - before[0]
 
 
 def k1_route(coef: torch.Tensor, bbox: torch.Tensor, what: str, size: int = S) -> dict:
@@ -283,18 +340,11 @@ def k1_route(coef: torch.Tensor, bbox: torch.Tensor, what: str, size: int = S) -
     covered = (fid_p >= 0).float().mean().item()
     check(covered > 0.01, f"K1 scene covers pixels on {what}")
     route = lambda: k1.msaa_select_cuda(coef, bbox, size)  # noqa: E731
-    per_route = k1_launches_per_route(route)
-    check(per_route == len(K1_PARTS), f"K1's route is a zero fill, a bin and a fine launch on {what}: "
+    per_route = launches_per_route(route, k1.rasterize_msaa, "K1")
+    check(per_route == len(ROUTE_PARTS), f"K1's route is a zero fill, a bin and a fine launch on {what}: "
                                       f"{per_route} launches")
     ms = time_ms(route, reps=20)
-    for _ in range(3):  # a profile that missed every launch of one part is taken again
-        parts = {}
-        for name, (t, _) in device_ms(route).items():
-            part = "bin" if "bin" in name else "fine" if "fine" in name else "zero_fill" if "emset" in name else name
-            parts[part] = parts.get(part, 0.0) + t
-        if set(parts) == set(K1_PARTS):
-            break
-    check(set(parts) == set(K1_PARTS), f"the profiler saw K1's three launches on {what}: {sorted(parts)}")
+    parts = route_parts_ms(route, f"K1 on {what}")
     pairs = box_pairs(bbox, size)
     nbytes = (coef.numel() + bbox.numel()) * 4 + 3 * fid.numel() * 4
     bound_ms, bound_by = bound(nbytes, pairs * K1_OPS_PER_PAIR)
@@ -345,14 +395,14 @@ def k3_launch(g: torch.Tensor, idx: torch.Tensor, n_rows: int, what: str) -> dic
 
 @contextlib.contextmanager
 def captured_kernel_inputs():
-    """Record the inputs of every K1 route (coef, bbox, size) and every K3
-    launch (values, idx, n_rows) the port makes inside the block, by
-    wrapping the module functions its wrappers call; the kernels still
-    run, and their counts are untouched."""
-    from hifihr_tpu_torch.render import gather, raster_msaa
+    """Record the inputs of every K1 route (coef, bbox, size), every K3
+    launch (values, idx, n_rows) and every K4 route (tri, size) the port
+    makes inside the block, by wrapping the module functions its wrappers
+    call; the kernels still run, and their counts are untouched."""
+    from hifihr_tpu_torch.render import gather, raster, raster_msaa
 
-    got = {"K1": [], "K3": []}
-    k1_fn, k3_fn = raster_msaa.msaa_select_cuda, gather._scatter
+    got = {"K1": [], "K3": [], "K4": []}
+    k1_fn, k3_fn, k4_fn = raster_msaa.msaa_select_cuda, gather._scatter, raster.select_face_id_cuda
 
     def k1(coef, bbox, image_size, samples=3):
         got["K1"].append((coef.clone(), bbox.clone(), image_size))
@@ -362,11 +412,15 @@ def captured_kernel_inputs():
         got["K3"].append((values.detach().clone(), idx.clone(), n_rows))
         return k3_fn(values, idx, n_rows)
 
-    raster_msaa.msaa_select_cuda, gather._scatter = k1, k3
+    def k4(tri, image_size):
+        got["K4"].append((tri.clone(), image_size))
+        return k4_fn(tri, image_size)
+
+    raster_msaa.msaa_select_cuda, gather._scatter, raster.select_face_id_cuda = k1, k3, k4
     try:
         yield got
     finally:
-        raster_msaa.msaa_select_cuda, gather._scatter = k1_fn, k3_fn
+        raster_msaa.msaa_select_cuda, gather._scatter, raster.select_face_id_cuda = k1_fn, k3_fn, k4_fn
 
 
 def bound(nbytes: int, ops: int = 0) -> tuple[float, str]:
@@ -414,7 +468,7 @@ def phase_kernels(batch: dict) -> list:
     cvs, cfaces = crafted_scene(vs.device)
     for what, sv, sf, won in (
             ("the bin-edge scene", torch.tensor(edge_vs, device=vs.device),
-             torch.tensor(edge_faces, device=vs.device).long(), set(range(-1, 13)) - {10}),
+             torch.tensor(edge_faces, device=vs.device).long(), BIN_EDGE_WINNERS),
             ("K4's crafted scene", cvs, cfaces, {-1, 2, 3, 4})):
         got = k1.rasterize_msaa(sv, sf, 64)
         ref = k1.rasterize_msaa_plain(sv, sf, 64)
@@ -560,6 +614,44 @@ def ssaa_fetch_times(vs: torch.Tensor, faces: torch.Tensor, fid: torch.Tensor, a
             "k3_bound_ms": k3_bound, "k3_bound_by": k3_by}
 
 
+K4_FOOTPRINT = (8, 4)  # the pixels one warp of K4's fine kernel covers (u, v)
+TORUS_RADII = {"about 12%": 0.26, "about 60%": 0.53}  # torus_scene's radius per covered share
+
+
+def k4_route(tri: torch.Tensor, size: int, what: str, ref: tuple | None = None) -> dict:
+    """K4's route against its plain version (`ref`, computed when not given;
+    face_id and zbuf exactly equal), then its time, the launches of one
+    route as the C route counts them (a zero fill, the bin kernel and the
+    fine kernel: 3), each launch's device time (torch.profiler), the pairs
+    its warps walk and its bound."""
+    from hifihr_tpu_torch.render import raster as k4
+
+    fid, zb = k4.select_face_id_cuda(tri, size)
+    fid_p, zb_p = ref if ref is not None else k4.select_face_id_plain(tri, size)
+    torch.cuda.synchronize()
+    for name, a, b in (("face_id", fid, fid_p), ("zbuf", zb, zb_p)):
+        check(torch.equal(a, b), f"K4 {name} equals the plain version on {what} "
+                                 f"({(a != b).sum().item()} mismatches)")
+    covered = (fid_p >= 0).float().mean().item()
+    check(covered > 0.01, f"K4 scene covers pixels on {what}")
+    route = lambda: k4.select_face_id_cuda(tri, size)  # noqa: E731
+    per_route = launches_per_route(route, k4.rasterize_face_id, "K4")
+    check(per_route == len(ROUTE_PARTS), f"K4's route is a zero fill, a bin and a fine launch on {what}: "
+                                         f"{per_route} launches")
+    ms = time_ms(route, reps=20)
+    parts = route_parts_ms(route, f"K4 on {what}")
+    boxes = face_boxes(tri)
+    pairs = box_pairs(boxes, size)
+    bound_ms, bound_by = bound(tri.numel() * 4 + 2 * fid.numel() * 4, pairs * K4_OPS_PER_PAIR)
+    out = {"input": what, "shape": list(tri.shape), "image_size": size, "covered": covered,
+           "box_pairs": pairs, "walked_pairs": walked_pairs(boxes, size, K4_FOOTPRINT),
+           "tile_pairs": tile_pairs(boxes, size), "route_ms": ms, "parts_ms": parts,
+           "device_ms": sum(parts.values()), "launches_per_route": per_route,
+           "bound_ms": bound_ms, "bound_by": bound_by}
+    print(f"K4 on {what}: " + json.dumps(out))
+    return out
+
+
 def phase_k4(batch: dict) -> dict:
     from hifihr_tpu_torch.render import raster as k4
     from hifihr_tpu_torch.render.renderer import _scale_intrinsics
@@ -569,41 +661,65 @@ def phase_k4(batch: dict) -> dict:
     verts, attrs = verts[:SSAA_B], attrs[:SSAA_B]
     vs = k4.project_to_screen(verts, _scale_intrinsics(batch["Ks"][:SSAA_B], float(AA)))
     tri = k4.face_triangles(vs, faces)
-    fid, zb = k4.rasterize_face_id(vs, faces, size)
-    fid_p, zb_p = k4.select_face_id_plain(tri, size)
-    torch.cuda.synchronize()
-    covered = fid_p >= 0
-    print(f"K4: {tuple(fid.shape)}, covered pixels {covered.float().mean().item():.4f}, "
-          f"face_id mismatches {(fid != fid_p).sum().item()}, zbuf mismatches {(zb != zb_p).sum().item()}")
     check(tuple(tri.shape) == (SSAA_B, 1538, 9), f"K4 input shape {tuple(tri.shape)}")
-    check(torch.equal(fid, fid_p), "K4 face_id equals the plain version")
-    check(torch.equal(zb, zb_p), "K4 zbuf equals the plain version")
-    check(covered.float().mean().item() > 0.01, "K4 scene covers pixels")
-    k4_err = (zb[covered] - zb_p[covered]).abs().max().item()
-
-    cvs, cfaces = crafted_scene(vs.device)
-    cf, cz = k4.rasterize_face_id(cvs, cfaces, 64)
-    cf_p, cz_p = k4.rasterize_face_id_plain(cvs, cfaces, 64)
+    fid, zb = k4.rasterize_face_id(vs, faces, size)
+    ref = k4.select_face_id_plain(tri, size)
     torch.cuda.synchronize()
-    seen = set(torch.unique(cf).tolist())
-    print(f"K4 crafted 64^2 scene: faces selected {sorted(seen)}")
-    check(torch.equal(cf, cf_p) and torch.equal(cz, cz_p), "K4 equals the plain version on the crafted scene")
-    check(seen == {-1, 2, 3, 4}, f"crafted scene: only faces 2, 3 (both windings) and 4 (the tie) win: {seen}")
+    covered = ref[0] >= 0
+    print(f"K4: {tuple(fid.shape)}, covered pixels {covered.float().mean().item():.4f}, face_id mismatches "
+          f"{(fid != ref[0]).sum().item()}, zbuf mismatches {(zb != ref[1]).sum().item()}")
+    check(torch.equal(fid, ref[0]) and torch.equal(zb, ref[1]), "K4 through rasterize_face_id equals the plain "
+                                                                "version on the eval hand")
+    k4_err = (zb[covered] - ref[1][covered]).abs().max().item()
+    eval_hand = k4_route(tri, size, "the eval hand", ref)
+    # the route's floor: the eval hand's corners with every depth behind the
+    # camera, so no face is listed and every tile writes background
+    empty = tri.clone()
+    empty[..., 2::3] = -1.0
+    efid, ezb = k4.select_face_id_cuda(empty, size)
+    check(bool((efid == -1).all()) and bool(torch.isinf(ezb).all()), "K4 writes background where no face is valid")
+    no_face = {"route_ms": time_ms(lambda: k4.select_face_id_cuda(empty, size), reps=20),
+               "parts_ms": route_parts_ms(lambda: k4.select_face_id_cuda(empty, size), "K4 on no valid face")}
+    print("K4 with no valid face (the route's floor): " + json.dumps(no_face))
 
-    k4_ms = time_ms(lambda: k4.select_face_id_cuda(tri, size), reps=20)
+    # the crafted scenes: K4's edge cases, and the bins' and tiles' edges
+    edge_vs, edge_faces = bin_edge_scene()
+    cvs, cfaces = crafted_scene(vs.device)
+    for what, sv, sf, won in (
+            ("K4's crafted scene", cvs, cfaces, {-1, 2, 3, 4}),
+            ("the bin-edge scene", torch.tensor(edge_vs, device=vs.device),
+             torch.tensor(edge_faces, device=vs.device).long(), BIN_EDGE_WINNERS)):
+        got = k4.rasterize_face_id(sv, sf, 64)
+        want = k4.rasterize_face_id_plain(sv, sf, 64)
+        torch.cuda.synchronize()
+        seen = set(torch.unique(got[0]).tolist())
+        print(f"K4 on {what} (64^2): faces selected {sorted(seen)}")
+        check(all(torch.equal(a, b) for a, b in zip(got, want)), f"K4 equals the plain version on {what}")
+        check(seen == won, f"K4 on {what}: the faces that win are {sorted(won)}, not {sorted(seen)}")
+
+    # NIMBLE's face count, at two covered shares
+    nimble = {}
+    for i, (share, radius) in enumerate(TORUS_RADII.items()):
+        tv, tf = torus_scene(size, radius, seed=10 + i)
+        ttri = k4.face_triangles(torch.tensor(tv, device=vs.device), torch.tensor(tf, device=vs.device).long())
+        check(tuple(ttri.shape) == (SSAA_B, 11926, 9), f"NIMBLE-sized K4 input shape {tuple(ttri.shape)}")
+        what = f"the NIMBLE-sized torus, {share} covered"
+        tref = k4.select_face_id_plain(ttri, size)
+        nimble[share] = k4_route(ttri, size, what, tref)
+
     k4_plain_ms = time_ms(lambda: k4.select_face_id_plain(tri, size), reps=1, groups=2)
-    boxes = face_boxes(tri)
-    pairs = box_pairs(boxes, size)
-    k4_bound, k4_by = bound(tri.numel() * 4 + 2 * fid.numel() * 4, pairs * K4_OPS_PER_PAIR)
-    print(f"K4: kernel {k4_ms:.4f} ms, plain {k4_plain_ms:.2f} ms, {pairs} (pixel, face) pairs, "
-          f"{tile_pairs(boxes, size)} walked by the tiles, bound {k4_bound:.4f} ms ({k4_by})")
+    print(f"K4: route {eval_hand['route_ms']:.4f} ms on the eval hand, plain {k4_plain_ms:.2f} ms, "
+          f"bound {eval_hand['bound_ms']:.4f} ms ({eval_hand['bound_by']})")
 
     fetch = ssaa_fetch_times(vs, faces, fid, torch.cat([attrs, verts], dim=-1))
     print("SSAA corner fetch, forward + backward: " + json.dumps(fetch))
     return {"name": "K4 face_raster", "route": "cuda", "source": "hifihr_tpu_torch/csrc/raster_face.cu",
             "replaces": "hifihr_tpu/render/raster_pallas.py:26", "launches": None,
-            "max_abs_err": k4_err, "ms": k4_ms, "plain_ms": k4_plain_ms, "bound_ms": k4_bound,
-            "bound_by": k4_by, "library_ms": None}
+            "max_abs_err": k4_err, "ms": eval_hand["route_ms"], "device_ms": eval_hand["device_ms"],
+            "parts_ms": eval_hand["parts_ms"],
+            "launches_per_route": eval_hand["launches_per_route"], "plain_ms": k4_plain_ms,
+            "bound_ms": eval_hand["bound_ms"], "bound_by": eval_hand["bound_by"], "library_ms": None,
+            "eval_hand": eval_hand, "no_valid_face": no_face, "nimble_sized": nimble}
 
 
 # the kernels each render mode's steps launch; the others must stay at 0
@@ -628,7 +744,7 @@ def phase_eval_step(batch: dict, profile: bool, aa_mode: str = "msaa") -> dict:
     out = step(batch)
     torch.cuda.synchronize()
     launches = read_launches()
-    check_k1_route_launches(launches, f"the {aa_mode} eval step")
+    check_route_launches(launches, f"the {aa_mode} eval step")
     print(f"{aa_mode} eval step launches: {launches}")
     raster, gather, scatter = PATH_KERNELS[aa_mode]
     check(launches[raster] == 1 and launches[gather] > 0 and launches[scatter] == 0
@@ -717,6 +833,7 @@ def reset_launches() -> None:
     gather.gather_rows.launches = 0
     gather.scatter_rows.launches = 0
     raster.rasterize_face_id.launches = 0
+    raster.rasterize_face_id.device_launches = 0
 
 
 def read_launches() -> dict:
@@ -728,14 +845,16 @@ def read_launches() -> dict:
             "K4 face_raster": raster.rasterize_face_id.launches}
 
 
-def check_k1_route_launches(launches: dict, what: str) -> None:
-    """Every K1 route of the run just read made its three launches, as the C
-    route counted them."""
-    from hifihr_tpu_torch.render import raster_msaa
+def check_route_launches(launches: dict, what: str) -> None:
+    """Every K1 and K4 route of the run just read made its three launches,
+    as the C routes counted them."""
+    from hifihr_tpu_torch.render import raster, raster_msaa
 
-    made = raster_msaa.rasterize_msaa.device_launches
-    check(made == len(K1_PARTS) * launches["K1 msaa_raster"],
-          f"{len(K1_PARTS)} launches in each of the {launches['K1 msaa_raster']} K1 routes of {what}: {made}")
+    for name, wrapper in (("K1 msaa_raster", raster_msaa.rasterize_msaa),
+                          ("K4 face_raster", raster.rasterize_face_id)):
+        made = wrapper.device_launches
+        check(made == len(ROUTE_PARTS) * launches[name],
+              f"{len(ROUTE_PARTS)} launches in each of the {launches[name]} {name} routes of {what}: {made}")
 
 
 def slice_batch(n: int = 8, size: int = 32) -> dict:
@@ -797,8 +916,8 @@ def phase_train_step(batch: dict, profile: bool, aa_mode: str = "msaa") -> tuple
     step = make_train_step(model, LossComputer(cfg), "FreiHand", cfg)
     sched = make_sched(cfg, 0)
     totals = []
-    # the first step renders the seeded init's hand: keep the inputs K1 and
-    # K3 get there
+    # the first step renders the seeded init's hand: keep the inputs K1, K3
+    # and K4 get there
     with captured_kernel_inputs() as first:
         state, d = step(state, batch, sched)
     totals.append(d["total"])
@@ -811,25 +930,28 @@ def phase_train_step(batch: dict, profile: bool, aa_mode: str = "msaa") -> tuple
     state, d = step(state, batch, sched)
     torch.cuda.synchronize()
     launches = read_launches()
-    check_k1_route_launches(launches, f"the {aa_mode} train step")
+    check_route_launches(launches, f"the {aa_mode} train step")
     totals.append(d["total"])
     print(f"{aa_mode} train step launches: {launches}")
     path = PATH_KERNELS[aa_mode]
     check(all(launches[k] > 0 for k in path) and sum(launches[k] for k in path) == sum(launches.values()),
           f"{', '.join(path)} and no other kernel ran on the {aa_mode} train path: {launches}")
-    # K1 and K3 on the step's own inputs: the first step's here, freed before
-    # the timed steps, and a later step's at the end
-    hand = {"K1": [], "K3": []}
+    # K1, K3 and K4 on the step's own inputs: the first step's here, freed
+    # before the timed steps, and a later step's at the end
+    hand = {"K1": [], "K3": [], "K4": []}
 
     def kernels_on(got: dict, when: str) -> None:
-        check(len(got["K1"]) == launches["K1 msaa_raster"] and len(got["K3"]) == launches["K3 scatter_rows"],
-              f"one capture per K1 route and K3 launch of the {aa_mode} train step")
+        check(len(got["K1"]) == launches["K1 msaa_raster"] and len(got["K3"]) == launches["K3 scatter_rows"]
+              and len(got["K4"]) == launches["K4 face_raster"],
+              f"one capture per K1 route, K3 launch and K4 route of the {aa_mode} train step")
         hand["K1"].extend(k1_route(coef, bbox, f"the {aa_mode} train step's hand at {when}", size)
                           for coef, bbox, size in got["K1"])
         hand["K3"].extend(k3_launch(g, idx, n, f"launch {i} of the {aa_mode} train step at {when}")
                           for i, (g, idx, n) in enumerate(got["K3"]))
-        got["K1"].clear()
-        got["K3"].clear()
+        hand["K4"].extend(k4_route(tri, size, f"the {aa_mode} train step's hand at {when}")
+                          for tri, size in got["K4"])
+        for v in got.values():
+            v.clear()
 
     kernels_on(first, "step 1")
     losses = {k: v.item() for k, v in d.items()}
@@ -966,7 +1088,7 @@ def profile_steps(step, batch, n: int = 3) -> None:
           f"{dev_total / n / 1e3:.3f} ms/step ({dev_total / wall_us:.3f} of wall), "
           f"{n_launch / n:.0f} kernel launches/step")
     ranked = sorted(rows, key=lambda e: -e.self_device_time_total)
-    ours = ("msaa_", "gather_rows", "scatter_rows", "face_raster", "Memset")  # the port's kernels
+    ours = ("msaa_", "gather_rows", "scatter_rows", "face_", "Memset")  # the port's kernels
     for i, e in enumerate(ranked):
         if i < 25 or any(k in e.key for k in ours):
             print(f"  {e.self_device_time_total / n / 1e3:9.4f} ms/step  x{e.count // n:<4d} {e.key[:110]}")
@@ -1005,6 +1127,7 @@ def main() -> int:
     ssaa_train_launches, ssaa_train_hand = phase_train_step(ssaa_batch, args.profile, aa_mode="ssaa")
     table[0]["train_hand"] = train_hand["K1"] + ssaa_train_hand["K1"]
     table[2]["train_hand"] = train_hand["K3"] + ssaa_train_hand["K3"]
+    table[3]["train_hand"] = ssaa_train_hand["K4"]
     for k in table:
         name = k["name"]
         if name.startswith("K4"):

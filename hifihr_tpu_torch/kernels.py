@@ -37,7 +37,8 @@ SIGNATURES = {
     "raster_msaa": {"hifihr_msaa_raster": ([_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P], _I)},
     "gather_rows": {"hifihr_gather_rows": ([_P, _P, _I, _I, _I, _I, _P, _P], _I)},
     "scatter_rows": {"hifihr_scatter_rows": ([_P, _P, _I, _I, _I, _I, _P, _P], _I)},
-    "raster_face": {"hifihr_face_raster": ([_P, _I, _I, _I, _P, _P, _P], _I)},
+    "raster_face": {"hifihr_face_route": ([_P, _I, _I, _I, _P, _P, _P, _P, _P], _I),
+                    "hifihr_face_mask_words": ([_I, _I, _I], ctypes.c_longlong)},
 }
 
 _LOADED: dict[str, ctypes.CDLL] = {}

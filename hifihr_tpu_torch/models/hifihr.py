@@ -17,7 +17,7 @@ from torch import nn
 
 from hifihr_tpu_torch import constant
 from hifihr_tpu_torch.config import Config
-from hifihr_tpu_torch.geometry.projection import perspective_project
+from hifihr_tpu_torch.geometry.projection import orthographic_project, perspective_project
 from hifihr_tpu_torch.hand.mano import ManoLayer, regress_joints_frei
 from hifihr_tpu_torch.networks.heads import HandEncoder, LightEstimator
 from hifihr_tpu_torch.networks.resnet import ResNetEncoder
@@ -106,10 +106,20 @@ class HiFiHR(nn.Module):
         return outputs
 
 
-def attach_j2d(outputs: dict, Ks=None, root_xyz=None) -> dict:
-    """Project the predicted joints to 2D after restoring the root
-    (perspective through K)."""
-    outputs["j2d"] = perspective_project(outputs["joints"] + root_xyz, Ks[:, :3, :3])
+def attach_j2d(outputs: dict, Ks=None, root_xyz=None, ortho_intr=None,
+               dat_name: str = "FreiHand") -> dict:
+    """Project the predicted joints to 2D: for DART through its fitted
+    orthographic camera `ortho_intr` (B, 3), otherwise in perspective
+    through K after restoring the root."""
+    if dat_name == "Dart":
+        outputs["j2d"] = orthographic_project(outputs["joints"], ortho_intr)
+        if "nimble_joints" in outputs:
+            outputs["nimble_j2d"] = orthographic_project(outputs["nimble_joints"], ortho_intr)
+    else:
+        outputs["j2d"] = perspective_project(outputs["joints"] + root_xyz, Ks[:, :3, :3])
+        if "nimble_joints" in outputs:
+            outputs["nimble_j2d"] = perspective_project(outputs["nimble_joints"] + root_xyz,
+                                                        Ks[:, :3, :3])
     return outputs
 
 

@@ -6,9 +6,14 @@ hifihr_tpu/render/raster_pallas.py::_kernel (rasterize_face_id_pallas):
 
   rasterize_face_id_plain   plain PyTorch version, vectorised over pixels,
                             walking the faces in ascending chunks
-  rasterize_face_id         the wrapper: the CUDA kernel csrc/raster_face.cu
-                            for a CUDA tensor, the plain version for a CPU
-                            tensor
+  rasterize_face_id         the wrapper: for a CUDA tensor the route of
+                            csrc/raster_face.cu (`select_face_id_cuda`,
+                            three launches on the current stream: a zero
+                            fill of per-bin face bitmasks, a bin kernel that
+                            sets each face's bit in every 32x32 bin its box
+                            overlaps, and a fine kernel that walks each
+                            16x16 tile's faces in ascending order); for a CPU
+                            tensor the plain version
 
 Screen convention: pixel coordinates, u right / v down, pixel centres at
 i + 0.5; u = fx * x / z + cx (OpenCV-style K).
@@ -22,9 +27,15 @@ K4's contract, at every pixel centre (u, v) = (col + 0.5, row + 0.5):
   strict < in ascending face order, so the lowest id wins a tie. Outputs:
   face_id (B, S, S) int32 (-1 on background) and zbuf (B, S, S) float32
   (inf on background). No gradient.
+
+Launch counts: `rasterize_face_id.launches` counts routes (one per call on a
+CUDA tensor); `rasterize_face_id.device_launches` counts the route's launches
+(3 per route with F > 0), each counted by the C route where it enqueues it.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -101,8 +112,11 @@ def rasterize_face_id_plain(verts_screen: torch.Tensor, faces: torch.Tensor, ima
 
 
 def select_face_id_cuda(tri: torch.Tensor, image_size: int):
-    """Launch csrc/raster_face.cu on K4's (B, F, 9) input. Counts the launch
-    on `rasterize_face_id.launches`."""
+    """Launch the route of csrc/raster_face.cu on K4's (B, F, 9) input: zero
+    fill of the bin bitmasks (sized by the C side, `hifihr_face_mask_words`),
+    bin kernel, fine kernel. Counts the route on `rasterize_face_id.launches` and
+    adds the launches the C route counted as it enqueued them to
+    `rasterize_face_id.device_launches`."""
     B, F, _ = tri.shape
     S = image_size
     if tri.device.type != "cuda":
@@ -113,12 +127,16 @@ def select_face_id_cuda(tri: torch.Tensor, image_size: int):
     if B > 65535 or B * S * S >= 2**31 or F >= 2**24:
         raise ValueError(f"B={B}, F={F}, S={S} outside the kernel's range")
     lib = kernels.load("raster_face")
+    mask = torch.empty(lib.hifihr_face_mask_words(B, F, S), dtype=torch.int32, device=tri.device)
     fid = torch.empty((B, S, S), dtype=torch.int32, device=tri.device)
     zbuf = torch.empty((B, S, S), dtype=torch.float32, device=tri.device)
-    err = lib.hifihr_face_raster(tri.data_ptr(), B, F, S, fid.data_ptr(), zbuf.data_ptr(),
-                                 kernels.stream_ptr(tri.device))
+    launched = ctypes.c_int(0)
+    err = lib.hifihr_face_route(tri.data_ptr(), B, F, S, mask.data_ptr(), fid.data_ptr(),
+                                zbuf.data_ptr(), kernels.stream_ptr(tri.device), ctypes.byref(launched))
+    rasterize_face_id.device_launches += launched.value
     kernels.check(err, "raster_face")
-    rasterize_face_id.launches += 1
+    if B and S:
+        rasterize_face_id.launches += 1
     return fid, zbuf
 
 
@@ -133,3 +151,4 @@ def rasterize_face_id(verts_screen: torch.Tensor, faces: torch.Tensor, image_siz
 
 
 rasterize_face_id.launches = 0
+rasterize_face_id.device_launches = 0

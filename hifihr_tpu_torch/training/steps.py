@@ -68,7 +68,8 @@ def _root_center_targets(batch: dict, dat_name: str) -> dict:
 def _forward(model: HiFiHR, batch: dict, dat_name: str, train: bool) -> dict:
     outputs = model(batch["imgs"], batch.get("Ks"), batch.get("root_xyz"),
                     dat_name=dat_name, mode_train=train)
-    return attach_j2d(outputs, Ks=batch.get("Ks"), root_xyz=batch.get("root_xyz"))
+    return attach_j2d(outputs, Ks=batch.get("Ks"), root_xyz=batch.get("root_xyz"),
+                      ortho_intr=batch.get("ortho_intr"), dat_name=dat_name)
 
 
 def make_train_step(model: HiFiHR, loss_computer: LossComputer, dat_name: str,

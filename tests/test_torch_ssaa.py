@@ -125,6 +125,40 @@ def test_k4_posed_mano():
     _assert_k4_equal(pallas, port, zbuf_rtol=1e-5)
 
 
+def test_k4_bin_edge_scene():
+    """The scene chip_smoke.py holds K4's CUDA route against at its bin,
+    tile and warp-footprint edges (32, 16 and 8 x 4 px): boxes that end on
+    those edges and just inside them, slivers across tiles, a face over four
+    tiles, a face over the screen's edge, two identical faces, both
+    windings."""
+    from chip_smoke import BIN_EDGE_WINNERS, bin_edge_scene
+
+    vs, faces = bin_edge_scene()
+    ref, pallas, port = _k4_both(vs, faces, 64)
+    assert set(np.unique(port[0]).tolist()) == BIN_EDGE_WINNERS  # 9 wins the tie
+    for b in range(2):  # image 1 mirrors image 0: the other winding
+        assert set(np.unique(port[0][b]).tolist()) == BIN_EDGE_WINNERS
+    _assert_k4_equal(ref, port, zbuf_rtol=1e-6)
+    _assert_k4_equal(pallas, port, zbuf_rtol=1e-5)
+
+
+def test_k4_nimble_sized_torus():
+    """chip_smoke.py's NIMBLE-sized scene (a torus of 11,926 faces whose
+    near and far sides overlap), at 48 px on 2 images: face_id and zbuf
+    bit-equal to raster_jax op by op (the interpreted Pallas kernel is too
+    slow at this face count)."""
+    from chip_smoke import torus_scene
+
+    vs, faces = torus_scene(48, 0.4, seed=3, n=2)
+    assert faces.shape == (11926, 3)
+    with jax.disable_jit():
+        fr, zr = raster_jax.rasterize_face_id(jnp.asarray(vs), jnp.asarray(faces), 48)
+    fp, zp = traster.rasterize_face_id_plain(torch.tensor(vs), torch.tensor(faces).long(), 48)
+    assert 0.2 < (fp >= 0).float().mean().item() < 0.8
+    np.testing.assert_array_equal(fp.numpy(), np.asarray(fr))
+    np.testing.assert_array_equal(zp.numpy(), np.asarray(zr))
+
+
 def test_k4_plain_chunking_keeps_tie_rule(monkeypatch):
     """Face chunks of 1, 3 and all faces give the same selection (the tie
     rule spans chunk boundaries): a copy of the most visible face, appended
@@ -148,13 +182,14 @@ def test_k4_plain_chunking_keeps_tie_rule(monkeypatch):
 def test_k4_wrapper_takes_plain_version_on_cpu_and_raises_elsewhere():
     vs, faces = _random_mesh(32, seed=3)
     vs_t, faces_t = torch.tensor(vs), torch.tensor(faces).long()
-    before = traster.rasterize_face_id.launches
+    before = traster.rasterize_face_id.launches, traster.rasterize_face_id.device_launches
     out = traster.rasterize_face_id(vs_t, faces_t, 32)
     ref = traster.rasterize_face_id_plain(vs_t, faces_t, 32)
     for a, b in zip(out, ref):
         assert torch.equal(a, b)
     assert out[0].dtype == torch.int32 and out[1].dtype == torch.float32
-    assert traster.rasterize_face_id.launches == before  # no kernel launched
+    # no kernel launched
+    assert (traster.rasterize_face_id.launches, traster.rasterize_face_id.device_launches) == before
     with pytest.raises(ValueError, match="unsupported device"):
         traster.rasterize_face_id(vs_t.to("meta"), faces_t.to("meta"), 32)
     with pytest.raises(ValueError, match="CUDA"):
