@@ -59,7 +59,31 @@ over a few eval steps and a few train steps of both render modes. Phases:
      phase 7, with K4, K2 and K3 launched, the card-against-CPU step in the
      train-slice test's configuration with aa_mode="ssaa", and K3 on each of
      the step's two launches and K4 on its route at both captured steps
- 11. one `{"kernels": [...]}` line: per kernel its time (K1 the whole route,
+ 11. K1, K2 and K3 at NIMBLE's shapes, on 64 posed NIMBLE hands (the
+     port's NimbleLayer on numpy-seeded pose, shape and appearance, 11,926
+     faces, placed as the model places them, at 224^2): K1's route exactly
+     equal to its plain version on the first K1_PLAIN_IMAGES images (the
+     plain version takes seconds per 8 images at this face count), timed on
+     all 64; K2 bit-equal on the (64, 11926, 48) packed table of the corner
+     render and on the (64, 5990, 9) corner gather (idx = the flat faces),
+     beside the library's indexing and index_select; K3 on the corner
+     render's real backward inputs (an L1 loss on the shaded render: the
+     48-float per-pixel fetch and the two corner gathers), within its bound
+ 12. the NIMBLE eval step (the flagship with hand_model="nimble", batch 64,
+     224^2, the MSAA corner render): the checks of phase 6, the fp32 step on
+     the card against the CPU in the train-slice test's configuration with
+     hand_model="nimble"
+ 13. the NIMBLE train step (the same batch and bench losses, 15 terms): the
+     checks of phase 7, with the card-against-CPU step in the slice
+     configuration with hand_model="nimble". There the CPU step shades the
+     card's face choice, and the CPU's own choice is held at 99.5% of
+     pixels or more: two neighbours of NIMBLE's 11,926 faces have near
+     equal depths along every shared edge, so the last bits of the vertices
+     (fp32 sums in another order on each device) can move the nearer face
+     at a pixel, and one such pixel moves a photometric term by ~1e-4
+     (tests/test_torch_nimble_slice.py). K1 is held exactly on identical
+     inputs in phase 11 and on the step's own inputs at steps 1 and 41
+ 14. one `{"kernels": [...]}` line: per kernel its time (K1 the whole route,
      by CUDA events, as every kernel's `ms`; each launch's device time
      under `parts_ms`, and for K4 their sum under `device_ms`), launches in one step of
      its path (K1 routes and K2 the eval step, K3 the train step, K4 the
@@ -69,7 +93,14 @@ over a few eval steps and a few train steps of both render modes. Phases:
      against the plain version, the plain version's time, the bound and,
      for K2 and K3, one PyTorch call's time (indexing; `index_add_`); K1,
      K3 and K4 carry their numbers on the train steps' inputs under
-     `train_hand`, K4 also on the NIMBLE-sized scenes (`nimble_sized`)
+     `train_hand`, K4 also on the NIMBLE-sized scenes (`nimble_sized`);
+     K1, K2 and K3 carry their NIMBLE readings under `nimble` (ms, plain
+     and library ms, bound, and the NIMBLE train steps' inputs), and every
+     kernel its launches in the NIMBLE steps (`launches_nimble_eval_step`,
+     `launches_nimble_train_step`)
+
+Every train step's captured K2 inputs are also held bit-equal to the plain
+version, at steps 1 and 41.
 
 Any failed check raises, so the exit code is nonzero; so it is without CUDA.
 The last line is {"ok": true, "device": {...}}.
@@ -104,6 +135,8 @@ STEPS = 15
 # add both photometric triples
 LOSSES = ("joint_3d", "joint_2d", "vert_3d", "mscale", "mshape", "mpose", "sil", "iou", "bone_direc")
 FIRED = LOSSES + ("texture_self", "mrgb_self", "ssim_tex_self", "texture", "mrgb", "ssim_tex", "total")
+NIMBLE_FACES = 11926
+K1_PLAIN_IMAGES = 8  # NIMBLE images K1 is held against its plain version on
 # the configuration of tests/test_torch_train_slice.py
 SLICE_CFG = dict(pretrain="res18", hand_model="mano", render=True, light_estimation=False, image_size=32,
                  aa_factor=3, aa_mode="msaa", compute_dtype="float32", losses=LOSSES)
@@ -323,16 +356,19 @@ def launches_per_route(fn, wrapper, what: str) -> int:
     return wrapper.device_launches - before[0]
 
 
-def k1_route(coef: torch.Tensor, bbox: torch.Tensor, what: str, size: int = S) -> dict:
+def k1_route(coef: torch.Tensor, bbox: torch.Tensor, what: str, size: int = S,
+             plain_images: int | None = None) -> dict:
     """K1's route against its plain version on the prep's records (face_id,
-    coverage and zbuf exactly equal), then its time, the launches of one
-    route as the C route counts them (a zero fill, the bin kernel and the
-    fine kernel: 3), each launch's device time (torch.profiler), the pairs
-    it walks and its bound."""
+    coverage and zbuf exactly equal; on the first `plain_images` images when
+    given, since each image's outputs depend on its own records only), then
+    its time on all of them, the launches of one route as the C route counts
+    them (a zero fill, the bin kernel and the fine kernel: 3), each launch's
+    device time (torch.profiler), the pairs it walks and its bound."""
     from hifihr_tpu_torch.render import raster_msaa as k1
 
-    fid, cov, zb = k1.msaa_select_cuda(coef, bbox, size)
-    fid_p, cov_p, zb_p = k1.msaa_select_plain(coef, size)
+    n = plain_images or coef.shape[0]
+    fid, cov, zb = (x[:n] for x in k1.msaa_select_cuda(coef, bbox, size))
+    fid_p, cov_p, zb_p = k1.msaa_select_plain(coef[:n], size)
     torch.cuda.synchronize()
     for name, a, b in (("face_id", fid, fid_p), ("coverage", cov, cov_p), ("zbuf", zb, zb_p)):
         check(torch.equal(a, b), f"K1 {name} equals the plain version on {what} "
@@ -348,7 +384,7 @@ def k1_route(coef: torch.Tensor, bbox: torch.Tensor, what: str, size: int = S) -
     pairs = box_pairs(bbox, size)
     nbytes = (coef.numel() + bbox.numel()) * 4 + 3 * fid.numel() * 4
     bound_ms, bound_by = bound(nbytes, pairs * K1_OPS_PER_PAIR)
-    out = {"hand": what, "shape": list(coef.shape), "covered": covered, "box_pairs": pairs,
+    out = {"hand": what, "shape": list(coef.shape), "plain_images": n, "covered": covered, "box_pairs": pairs,
            "walked_pairs": walked_pairs(bbox, size), "tile_pairs": tile_pairs(bbox, size),
            "route_ms": ms, "parts_ms": parts, "launches_per_route": per_route,
            "bound_ms": bound_ms, "bound_by": bound_by}
@@ -395,18 +431,24 @@ def k3_launch(g: torch.Tensor, idx: torch.Tensor, n_rows: int, what: str) -> dic
 
 @contextlib.contextmanager
 def captured_kernel_inputs():
-    """Record the inputs of every K1 route (coef, bbox, size), every K3
-    launch (values, idx, n_rows) and every K4 route (tri, size) the port
-    makes inside the block, by wrapping the module functions its wrappers
-    call; the kernels still run, and their counts are untouched."""
+    """Record the inputs of every K1 route (coef, bbox, size), every K2
+    launch (table, idx), every K3 launch (values, idx, n_rows) and every K4
+    route (tri, size) the port makes inside the block, by wrapping the
+    module functions its wrappers call; the kernels still run, and their
+    counts are untouched."""
     from hifihr_tpu_torch.render import gather, raster, raster_msaa
 
-    got = {"K1": [], "K3": [], "K4": []}
-    k1_fn, k3_fn, k4_fn = raster_msaa.msaa_select_cuda, gather._scatter, raster.select_face_id_cuda
+    got = {"K1": [], "K2": [], "K3": [], "K4": []}
+    k1_fn, k2_fn, k3_fn, k4_fn = (raster_msaa.msaa_select_cuda, gather._gather, gather._scatter,
+                                  raster.select_face_id_cuda)
 
     def k1(coef, bbox, image_size, samples=3):
         got["K1"].append((coef.clone(), bbox.clone(), image_size))
         return k1_fn(coef, bbox, image_size, samples)
+
+    def k2(table, idx):
+        got["K2"].append((table.detach().clone(), idx.clone()))
+        return k2_fn(table, idx)
 
     def k3(values, idx, n_rows):
         got["K3"].append((values.detach().clone(), idx.clone(), n_rows))
@@ -416,11 +458,12 @@ def captured_kernel_inputs():
         got["K4"].append((tri.clone(), image_size))
         return k4_fn(tri, image_size)
 
-    raster_msaa.msaa_select_cuda, gather._scatter, raster.select_face_id_cuda = k1, k3, k4
+    raster_msaa.msaa_select_cuda, gather._gather, gather._scatter, raster.select_face_id_cuda = k1, k2, k3, k4
     try:
         yield got
     finally:
-        raster_msaa.msaa_select_cuda, gather._scatter, raster.select_face_id_cuda = k1_fn, k3_fn, k4_fn
+        raster_msaa.msaa_select_cuda, gather._gather, gather._scatter, raster.select_face_id_cuda = (
+            k1_fn, k2_fn, k3_fn, k4_fn)
 
 
 def bound(nbytes: int, ops: int = 0) -> tuple[float, str]:
@@ -443,6 +486,55 @@ def l1_render_grad(batch: dict, fid: torch.Tensor, cov: torch.Tensor, rows: torc
     rgb = phong_shade(attrs_px[..., :3], attrs_px[..., 3:6], points,
                       DirectionalLight.default(n, device=pix.device)) * cov[..., None]
     return torch.autograd.grad((rgb - batch["imgs"]).abs().mean(), pix)[0].contiguous()
+
+
+def k3_yardsticks(g: torch.Tensor, idx: torch.Tensor, n_rows: int) -> tuple:
+    """The plain K3's time and one `index_add_` over the flattened
+    (B * n_rows + 1) table, background sent to the extra row (ms)."""
+    from hifihr_tpu_torch.render.gather import scatter_rows_plain
+
+    n, _, row = g.shape
+    b_idx = torch.arange(n, device=idx.device)[:, None]
+    dst = torch.where(idx >= 0, idx.long() + b_idx * n_rows, n * n_rows).reshape(-1)
+    g2 = g.reshape(-1, row)
+    return (time_ms(lambda: scatter_rows_plain(g, idx, n_rows), reps=20),
+            time_ms(lambda: torch.zeros(n * n_rows + 1, row, device=g.device).index_add_(0, dst, g2), reps=20))
+
+
+def k2_reading(table: torch.Tensor, idx: torch.Tensor, what: str, index_select: torch.Tensor | None = None) -> dict:
+    """K2 bit-equal to its plain version on one input, then its time, the
+    plain version's, one PyTorch indexing call's (`table[b, idx]`, zero rows
+    at -1), `index_select` where the index is one list for every image, and
+    the bound (table and idx read once, the output written once)."""
+    from hifihr_tpu_torch.render import gather as k2
+
+    out = k2.gather_rows(table, idx)
+    ref = k2.gather_rows_plain(table, idx)
+    torch.cuda.synchronize()
+    check(torch.equal(out.view(torch.int32), ref.view(torch.int32)), f"K2 bit-equal to the plain version on {what}")
+    b_idx = torch.arange(table.shape[0], device=idx.device)[:, None]
+    nbytes = (table.numel() + idx.numel() + out.numel()) * 4
+    bound_ms, bound_by = bound(nbytes)
+    r = {"input": what, "table": list(table.shape), "idx": list(idx.shape), "max_abs_err": 0.0,
+         "ms": time_ms(lambda: k2.gather_rows(table, idx), reps=50),
+         "plain_ms": time_ms(lambda: k2.gather_rows_plain(table, idx), reps=20),
+         "library_ms": time_ms(lambda: table[b_idx, idx.clamp(min=0).long()] * (idx >= 0)[..., None], reps=20),
+         "bound_ms": bound_ms, "bound_by": bound_by}
+    if index_select is not None:
+        r["index_select_ms"] = time_ms(lambda: table.index_select(1, index_select), reps=20)
+    print(f"K2 on {what}: " + json.dumps(r))
+    return r
+
+
+def check_k2_captures(got: list, what: str) -> int:
+    """Every captured K2 input of a step bit-equal to the plain version."""
+    from hifihr_tpu_torch.render import gather as k2
+
+    for i, (table, idx) in enumerate(got):
+        out, ref = k2.gather_rows(table, idx), k2.gather_rows_plain(table, idx)
+        check(torch.equal(out.view(torch.int32), ref.view(torch.int32)),
+              f"K2 launch {i} of {what} ({tuple(table.shape)}) bit-equal to the plain version")
+    return len(got)
 
 
 def phase_kernels(batch: dict) -> list:
@@ -505,11 +597,7 @@ def phase_kernels(batch: dict) -> list:
     n_faces, row = table.shape[1], table.shape[2]
     g = l1_render_grad(batch, fid, cov, out)
     k3_eval = k3_launch(g, idx, n_faces, "the MSAA render's backward input, eval hand")
-    k3_plain_ms = time_ms(lambda: k2.scatter_rows_plain(g, idx, n_faces), reps=20)
-    dst = torch.where(idx >= 0, idx.long() + b_idx * n_faces, B * n_faces).reshape(-1)
-    g2 = g.reshape(-1, row)
-    k3_lib_ms = time_ms(lambda: torch.zeros(B * n_faces + 1, row, device=g.device).index_add_(0, dst, g2),
-                        reps=20)
+    k3_plain_ms, k3_lib_ms = k3_yardsticks(g, idx, n_faces)
     k3_bound_all, _ = bound(idx.numel() * 4 + g.numel() * 4 + B * n_faces * row * 4)
     print(f"K3: kernel {k3_eval['ms']:.4f} ms, plain {k3_plain_ms:.4f} ms, index_add_ {k3_lib_ms:.4f} ms, "
           f"bound {k3_eval['bound_ms']:.4f} ms ({k3_bound_all:.4f} ms if every gradient row were read)")
@@ -532,6 +620,73 @@ def phase_kernels(batch: dict) -> list:
          "eval_hand": k3_eval},
     ]
     return kernels
+
+
+def nimble_hands(batch: dict, seed: int = 2):
+    """64 posed NIMBLE hands: the port's NimbleLayer on numpy-seeded PCA
+    pose, shape and appearance, placed as the model places them (the NIMBLE
+    root, joint 11, at root_xyz), with the NIMBLE corner renderer (faces,
+    atlas corners and corner appearance in Morton order). Returns
+    (camera-space verts, albedo, appearance coefficients, renderer)."""
+    from hifihr_tpu_torch.hand.nimble import NimbleLayer
+    from hifihr_tpu_torch.render.renderer import PhongRenderer, RenderSettings
+
+    dev = batch["Ks"].device
+    rng = np.random.RandomState(seed)
+    layer = NimbleLayer().to(dev)
+    params = {k: torch.tensor(rng.randn(B, n) * 0.5, dtype=torch.float32, device=dev)
+              for k, n in (("pose_params", 30), ("shape_params", 20), ("texture_params", 10))}
+    out = layer(params)
+    verts = out["skin_verts"] - out["nimble_joints"][:, 11:12] + batch["root_xyz"]
+    renderer = PhongRenderer(layer.faces_np, layer.v_template_np, RenderSettings(S, AA), face_uv=layer.face_uv_np,
+                             corner_mean=layer.corner_mean_np, corner_basis=layer.corner_basis_np).to(dev)
+    return verts, out["skin_albedo"], params["texture_params"], renderer
+
+
+def phase_nimble_kernels(batch: dict) -> dict:
+    """K1, K2 and K3 at NIMBLE's shapes on 64 posed NIMBLE hands at 224^2."""
+    from hifihr_tpu_torch.render import raster_msaa as k1
+    from hifihr_tpu_torch.render.interpolate import pack_face_table
+    from hifihr_tpu_torch.render.mesh import vertex_normals_and_tangents
+    from hifihr_tpu_torch.render.raster import project_to_screen
+    from hifihr_tpu_torch.render.shading import DirectionalLight
+
+    verts, albedo, tex, r = nimble_hands(batch)
+    faces, K = r.faces, batch["Ks"]
+    vs = project_to_screen(verts, K)
+    coef, bbox = k1.msaa_prep(vs, faces)
+    check(tuple(coef.shape) == (B, NIMBLE_FACES, 15), f"NIMBLE K1 input shape {tuple(coef.shape)}")
+    k1_n = k1_route(coef, bbox, "the NIMBLE hands", plain_images=K1_PLAIN_IMAGES)
+    k1_n["plain_ms"] = time_ms(lambda: k1.msaa_select_plain(coef, S), reps=1, groups=1)
+    print(f"K1 plain version on the 64 NIMBLE hands: {k1_n['plain_ms']:.2f} ms")
+
+    fid, _, _ = k1.msaa_select_cuda(coef, bbox, S)
+    normals, tangents = vertex_normals_and_tangents(verts, faces, r.face_uv)
+    table = pack_face_table(vs, faces, torch.cat([tangents, normals], dim=-1), r.corner_appearance(tex))
+    idx = fid.reshape(B, S * S).contiguous()
+    check(tuple(table.shape) == (B, NIMBLE_FACES, 48), f"NIMBLE packed table shape {tuple(table.shape)}")
+    flat = faces.reshape(-1)
+    corners = torch.cat([vs, tangents, normals], dim=-1).contiguous()
+    cidx = flat.to(torch.int32).expand(B, -1).contiguous()
+    k2_n = {"per_pixel_fetch": k2_reading(table, idx, "the NIMBLE packed table"),
+            "corner_gather": k2_reading(corners, cidx, "the NIMBLE corner gather", index_select=flat)}
+
+    # K3's real inputs: the backward of an L1 loss on the shaded corner render
+    verts_r, tex_r = verts.detach().requires_grad_(), tex.detach().requires_grad_()
+    with captured_kernel_inputs() as got:
+        rgba = r(verts_r, albedo, K, DirectionalLight.default(B, device=verts.device), tex_coef=tex_r)
+        (rgba[..., :3] - batch["imgs"]).abs().mean().backward()
+    check(tex_r.grad.abs().sum().item() > 0, "the render's gradient reached the appearance coefficients")
+    names = {48: "the NIMBLE render's per-pixel fetch backward", 9: "the NIMBLE packed table's corner gather backward",
+             3: "the NIMBLE normals' and tangents' corner gather backward"}
+    check(sorted(g.shape[2] for g, _, _ in got["K3"]) == [3, 9, 48],
+          f"three K3 launches in the NIMBLE render's backward: {[tuple(g.shape) for g, _, _ in got['K3']]}")
+    k3_n = {}
+    for g, gidx, n_rows in got["K3"]:
+        what = names[g.shape[2]]
+        k3_n[what] = k3_launch(g, gidx, n_rows, what)
+        k3_n[what]["plain_ms"], k3_n[what]["library_ms"] = k3_yardsticks(g, gidx, n_rows)
+    return {"K1": k1_n, "K2": k2_n, "K3": k3_n}
 
 
 def crafted_scene(device):
@@ -727,13 +882,14 @@ PATH_KERNELS = {"msaa": ("K1 msaa_raster", "K2 gather_rows", "K3 scatter_rows"),
                 "ssaa": ("K4 face_raster", "K2 gather_rows", "K3 scatter_rows")}
 
 
-def phase_eval_step(batch: dict, profile: bool, aa_mode: str = "msaa") -> dict:
+def phase_eval_step(batch: dict, profile: bool, aa_mode: str = "msaa", hand_model: str = "mano") -> dict:
     from hifihr_tpu_torch.config import Config
     from hifihr_tpu_torch.models.hifihr import build_model
     from hifihr_tpu_torch.training.steps import make_eval_step
 
     n = batch["imgs"].shape[0]
-    cfg = Config(pretrain="res50", hand_model="mano", render=True, light_estimation=True,
+    path = f"{hand_model} {aa_mode}"
+    cfg = Config(pretrain="res50", hand_model=hand_model, render=True, light_estimation=True,
                  image_size=S, aa_factor=AA, aa_mode=aa_mode, compute_dtype="bfloat16")
     model = build_model(cfg, device="cuda", seed=0)
     step = make_eval_step(model, "FreiHand", cfg)
@@ -744,8 +900,8 @@ def phase_eval_step(batch: dict, profile: bool, aa_mode: str = "msaa") -> dict:
     out = step(batch)
     torch.cuda.synchronize()
     launches = read_launches()
-    check_route_launches(launches, f"the {aa_mode} eval step")
-    print(f"{aa_mode} eval step launches: {launches}")
+    check_route_launches(launches, f"the {path} eval step")
+    print(f"{path} eval step launches: {launches}")
     raster, gather, scatter = PATH_KERNELS[aa_mode]
     check(launches[raster] == 1 and launches[gather] > 0 and launches[scatter] == 0
           and sum(launches.values()) == launches[raster] + launches[gather],
@@ -761,20 +917,20 @@ def phase_eval_step(batch: dict, profile: bool, aa_mode: str = "msaa") -> dict:
     sil_frac = (sil > 0).float().mean().item()
     check(bool(((sil == 0) | (sil == 255)).all()), "re_sil in {0, 255}")
     check(sil_frac > 0.001, f"re_sil covers pixels ({sil_frac})")
-    print(f"{aa_mode} eval step outputs finite; re_sil covers {sil_frac:.4f} of pixels")
+    print(f"{path} eval step outputs finite; re_sil covers {sil_frac:.4f} of pixels")
 
-    if aa_mode == "msaa":  # the flagship in fp32 on 2 images
+    if aa_mode == "msaa" and hand_model == "mano":  # the flagship in fp32 on 2 images
         cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
         eval_card_vs_cpu(cfg32, {k: v[:2].cpu() for k, v in batch.items()}, "the flagship, 2 images")
     else:
-        eval_card_vs_cpu(Config(**dict(SLICE_CFG, aa_mode=aa_mode)), slice_batch(),
+        eval_card_vs_cpu(Config(**dict(SLICE_CFG, aa_mode=aa_mode, hand_model=hand_model)), slice_batch(),
                          "res18, 32 px, 8 images")
 
     torch.cuda.reset_peak_memory_stats()
-    print(f"{aa_mode} eval step: " + json.dumps(time_steps(lambda: step(batch), n)))
+    print(f"{path} eval step: " + json.dumps(time_steps(lambda: step(batch), n)))
     if profile:
         profile_steps(step, batch)
-        if aa_mode == "msaa":
+        if aa_mode == "msaa" and hand_model == "mano":
             stage_times(model, batch)
     return launches
 
@@ -794,7 +950,7 @@ def eval_card_vs_cpu(cfg32, batch: dict, what: str) -> None:
     sil_mismatch = (gpu32["re_sil"].cpu() != cpu32["re_sil"]).float().mean().item()
     off = {k: ((gpu32[k].cpu() - cpu32[k]).abs() > 1e-4).float().mean().item()
            for k in ("re_img", "re_depth")}
-    print(f"fp32 {cfg32.aa_mode} eval step, card vs CPU ({what}): max abs {diffs}, re_sil mismatch "
+    print(f"fp32 {cfg32.hand_model} {cfg32.aa_mode} eval step, card vs CPU ({what}): max abs {diffs}, re_sil mismatch "
           f"share {sil_mismatch}, share off by > 1e-4 {off}")
     check(diffs["joints"] < 1e-5 and diffs["mano_verts"] < 1e-5, "joints and verts within 1e-5 m")
     check(diffs["j2d"] < 1e-3, "j2d within 1e-3 px")
@@ -876,48 +1032,65 @@ def slice_batch(n: int = 8, size: int = 32) -> dict:
     return {k: torch.tensor(v) for k, v in b.items()}
 
 
-def one_train_step(cfg, batch: dict, device: str):
+def one_train_step(cfg, batch: dict, device: str, faces: tuple | None = None):
     """One train step of a freshly built model (seed 0) on `device`: the
-    loss dict as floats and every parameter's gradient on the host."""
+    loss dict as floats, every parameter's gradient on the host, and the
+    step's MSAA face choice (face_id, coverage) on the host. With `faces`
+    (another run's choice) the step renders that choice, and its own is
+    returned."""
     from hifihr_tpu_torch.losses.stack import LossComputer
     from hifihr_tpu_torch.models.hifihr import build_model
     from hifihr_tpu_torch.training.steps import make_sched, make_train_step
     from hifihr_tpu_torch.training.train_state import create_train_state
 
     model = build_model(cfg, device=device, seed=0)
+    own = []
+    if cfg.aa_mode == "msaa":
+        select = model.renderer.select_faces
+
+        def recorded(verts_cam, K):
+            fid, cov = select(verts_cam, K)
+            own.append((fid.cpu(), cov.cpu()))
+            return (fid, cov) if faces is None else (faces[0].to(device), faces[1].to(device))
+
+        model.renderer.select_faces = recorded
     state = create_train_state(model, cfg)
     step = make_train_step(model, LossComputer(cfg), "FreiHand", cfg)
     _, d = step(state, {k: v.to(device) for k, v in batch.items()}, make_sched(cfg, 0, device=device))
     return ({k: v.item() for k, v in d.items()},
-            {n: p.grad.detach().cpu().clone() for n, p in model.named_parameters()})
+            {n: p.grad.detach().cpu().clone() for n, p in model.named_parameters()}, own[0] if own else None)
 
 
-def train_config(aa_mode: str):
+def train_config(aa_mode: str, hand_model: str = "mano"):
     """The flagship train step's configuration: the bench losses, Adam at
     lr 1e-3."""
     from hifihr_tpu_torch.config import Config
 
-    return Config(pretrain="res50", hand_model="mano", render=True, light_estimation=True,
+    return Config(pretrain="res50", hand_model=hand_model, render=True, light_estimation=True,
                   image_size=S, aa_factor=AA, aa_mode=aa_mode, compute_dtype="bfloat16",
                   losses=LOSSES, optimizer="Adam", init_lr=1e-3)
 
 
-def phase_train_step(batch: dict, profile: bool, aa_mode: str = "msaa") -> tuple:
+def phase_train_step(batch: dict, profile: bool, aa_mode: str = "msaa", hand_model: str = "mano") -> tuple:
     from hifihr_tpu_torch.config import Config
     from hifihr_tpu_torch.losses.stack import LossComputer
     from hifihr_tpu_torch.models.hifihr import build_model
     from hifihr_tpu_torch.training.steps import make_sched, make_train_step
     from hifihr_tpu_torch.training.train_state import create_train_state
 
-    cfg = train_config(aa_mode)
+    cfg = train_config(aa_mode, hand_model)
+    label = f"{hand_model} {aa_mode}"
+    nimble = hand_model == "nimble"
+    # K1's plain version takes seconds per image batch at NIMBLE's face count
+    plain_images = K1_PLAIN_IMAGES if nimble else None
     images = batch["imgs"].shape[0]
     model = build_model(cfg, device="cuda", seed=0)
     state = create_train_state(model, cfg, batch)
     step = make_train_step(model, LossComputer(cfg), "FreiHand", cfg)
     sched = make_sched(cfg, 0)
     totals = []
-    # the first step renders the seeded init's hand: keep the inputs K1, K3
-    # and K4 get there
+    # the first step renders the seeded init's hand: keep the inputs K1, K2,
+    # K3 and K4 get there
     with captured_kernel_inputs() as first:
         state, d = step(state, batch, sched)
     totals.append(d["total"])
@@ -930,37 +1103,39 @@ def phase_train_step(batch: dict, profile: bool, aa_mode: str = "msaa") -> tuple
     state, d = step(state, batch, sched)
     torch.cuda.synchronize()
     launches = read_launches()
-    check_route_launches(launches, f"the {aa_mode} train step")
+    check_route_launches(launches, f"the {label} train step")
     totals.append(d["total"])
-    print(f"{aa_mode} train step launches: {launches}")
+    print(f"{label} train step launches: {launches}")
     path = PATH_KERNELS[aa_mode]
     check(all(launches[k] > 0 for k in path) and sum(launches[k] for k in path) == sum(launches.values()),
-          f"{', '.join(path)} and no other kernel ran on the {aa_mode} train path: {launches}")
-    # K1, K3 and K4 on the step's own inputs: the first step's here, freed
-    # before the timed steps, and a later step's at the end
-    hand = {"K1": [], "K3": [], "K4": []}
+          f"{', '.join(path)} and no other kernel ran on the {label} train path: {launches}")
+    # K1, K3 and K4 on the step's own inputs, and K2 bit-equal there: the
+    # first step's here, freed before the timed steps, and a later step's at
+    # the end
+    hand = {"K1": [], "K2": 0, "K3": [], "K4": []}
 
     def kernels_on(got: dict, when: str) -> None:
-        check(len(got["K1"]) == launches["K1 msaa_raster"] and len(got["K3"]) == launches["K3 scatter_rows"]
-              and len(got["K4"]) == launches["K4 face_raster"],
-              f"one capture per K1 route, K3 launch and K4 route of the {aa_mode} train step")
-        hand["K1"].extend(k1_route(coef, bbox, f"the {aa_mode} train step's hand at {when}", size)
+        check(all(len(got[k]) == launches[name] for k, name in (
+            ("K1", "K1 msaa_raster"), ("K2", "K2 gather_rows"), ("K3", "K3 scatter_rows"), ("K4", "K4 face_raster"))),
+            f"one capture per K1 route, K2 and K3 launch and K4 route of the {label} train step")
+        hand["K1"].extend(k1_route(coef, bbox, f"the {label} train step's hand at {when}", size, plain_images)
                           for coef, bbox, size in got["K1"])
-        hand["K3"].extend(k3_launch(g, idx, n, f"launch {i} of the {aa_mode} train step at {when}")
+        hand["K2"] += check_k2_captures(got["K2"], f"the {label} train step at {when}")
+        hand["K3"].extend(k3_launch(g, idx, n, f"launch {i} of the {label} train step at {when}")
                           for i, (g, idx, n) in enumerate(got["K3"]))
-        hand["K4"].extend(k4_route(tri, size, f"the {aa_mode} train step's hand at {when}")
+        hand["K4"].extend(k4_route(tri, size, f"the {label} train step's hand at {when}")
                           for tri, size in got["K4"])
         for v in got.values():
             v.clear()
 
     kernels_on(first, "step 1")
     losses = {k: v.item() for k, v in d.items()}
-    print(f"{aa_mode} train step losses: " + json.dumps(losses))
+    print(f"{label} train step losses: " + json.dumps(losses))
     check(set(losses) == set(FIRED) | {"skipped"}, f"the 15 terms, total and skipped: {sorted(losses)}")
     check(all(np.isfinite(v) for v in losses.values()), "loss terms finite")
     check(losses["skipped"] == 0.0, "the step was not skipped")
     changed = (state.optimizer.flat != before).float().mean().item()
-    print(f"{aa_mode} train step changed {changed:.4f} of the {before.numel()} trained parameters")
+    print(f"{label} train step changed {changed:.4f} of the {before.numel()} trained parameters")
     check(changed > 0.5, "the parameters changed")
 
     # no host sync: first list every synchronising call of one step, then
@@ -981,21 +1156,28 @@ def phase_train_step(batch: dict, profile: bool, aa_mode: str = "msaa") -> tuple
     finally:
         torch.cuda.set_sync_debug_mode(0)
     totals.append(d["total"])
-    print(f"{aa_mode} train step: one step ran under set_sync_debug_mode('error'), no host sync")
+    print(f"{label} train step: one step ran under set_sync_debug_mode('error'), no host sync")
     for _ in range(10 - len(totals)):
         state, d = step(state, batch, sched)
         totals.append(d["total"])
     trajectory = [t.item() for t in totals]
-    print(f"{aa_mode} train loss trajectory (10 steps): " + json.dumps(trajectory))
+    print(f"{label} train loss trajectory (10 steps): " + json.dumps(trajectory))
     check(all(np.isfinite(trajectory)) and int(state.step) == 10, f"10 updates taken ({int(state.step)})")
 
     # fp32 on the card (kernels) against fp32 on the CPU (plain versions), in
     # the train-slice test's configuration. At the flagship's (res50, 224^2,
     # random init) one ulp of input moves the CPU's own encoder gradients by
-    # 3%, so no tighter bound could hold there (ROADMAP.md section 3)
-    small_cfg = Config(**dict(SLICE_CFG, aa_mode=aa_mode))
+    # 3%, so no tighter bound could hold there (ROADMAP.md section 3).
+    # NIMBLE's CPU step shades the card's face choice, and its own choice is
+    # held apart (the module docstring, phase 13)
+    small_cfg = Config(**dict(SLICE_CFG, aa_mode=aa_mode, hand_model=hand_model))
     small = slice_batch()
-    (gl, gg), (cl, cg) = one_train_step(small_cfg, small, "cuda"), one_train_step(small_cfg, small, "cpu")
+    gl, gg, gfaces = one_train_step(small_cfg, small, "cuda")
+    cl, cg, cfaces = one_train_step(small_cfg, small, "cpu", gfaces if nimble else None)
+    if gfaces is not None:
+        same = (gfaces[0] == cfaces[0]).float().mean().item()
+        print(f"fp32 {label} train step (res18, 32 px): the CPU's own face choice is the card's at {same} of pixels")
+        check(same >= 0.995, "the CPU's own face choice agrees with the card's")
     term_err = {k: abs(gl[k] - cl[k]) / max(abs(cl[k]), 1e-30) for k in FIRED}
     grad_err = {}
     for name, ref in cg.items():
@@ -1004,13 +1186,13 @@ def phase_train_step(batch: dict, profile: bool, aa_mode: str = "msaa") -> tuple
         nr = ref.norm().item()
         grad_err[name] = (gg[name] - ref).norm().item() / nr if nr > 0 else gg[name].norm().item()
     worst = sorted(grad_err.items(), key=lambda kv: -kv[1])[:4]
-    print(f"fp32 {aa_mode} train step (res18, 32 px), card vs CPU on 8 images: worst loss term rel err "
+    print(f"fp32 {label} train step (res18, 32 px), card vs CPU on 8 images: worst loss term rel err "
           f"{max(term_err.items(), key=lambda kv: kv[1])}, worst gradient rel L2 {worst}")
     check(max(term_err.values()) <= 1e-4, "loss terms within 1e-4 of the CPU plain path")
     check(max(grad_err.values()) <= 1e-3, "gradients within 1e-3 relative L2 of the CPU plain path")
 
     torch.cuda.reset_peak_memory_stats()
-    print(f"{aa_mode} train step: " + json.dumps(time_steps(lambda: step(state, batch, sched), images)))
+    print(f"{label} train step: " + json.dumps(time_steps(lambda: step(state, batch, sched), images)))
     if profile:
         profile_steps(lambda b: step(state, b, sched), batch)
 
@@ -1125,10 +1307,17 @@ def main() -> int:
     ssaa_batch = {k: v[:SSAA_B] for k, v in batch.items()}
     ssaa_eval_launches = phase_eval_step(ssaa_batch, args.profile, aa_mode="ssaa")
     ssaa_train_launches, ssaa_train_hand = phase_train_step(ssaa_batch, args.profile, aa_mode="ssaa")
+    nimble = phase_nimble_kernels(batch)
+    nimble_eval_launches = phase_eval_step(batch, args.profile, hand_model="nimble")
+    nimble_train_launches, nimble_train_hand = phase_train_step(batch, args.profile, hand_model="nimble")
     table[0]["train_hand"] = train_hand["K1"] + ssaa_train_hand["K1"]
     table[2]["train_hand"] = train_hand["K3"] + ssaa_train_hand["K3"]
     table[3]["train_hand"] = ssaa_train_hand["K4"]
-    for k in table:
+    nimble["K1"]["train_hand"] = nimble_train_hand["K1"]
+    nimble["K3"]["train_hand"] = nimble_train_hand["K3"]
+    k2_checked = train_hand["K2"] + ssaa_train_hand["K2"] + nimble_train_hand["K2"]
+    print(f"K2: {k2_checked} captured launches of the train steps bit-equal to the plain version")
+    for k, reading in zip(table, (nimble["K1"], nimble["K2"], nimble["K3"], None)):
         name = k["name"]
         if name.startswith("K4"):
             k["launches"], k["launches_train_step"] = ssaa_eval_launches[name], ssaa_train_launches[name]
@@ -1137,6 +1326,10 @@ def main() -> int:
             k["launches_train_step"] = train_launches[name]
         k["launches_ssaa_eval_step"] = ssaa_eval_launches[name]
         k["launches_ssaa_train_step"] = ssaa_train_launches[name]
+        k["launches_nimble_eval_step"] = nimble_eval_launches[name]
+        k["launches_nimble_train_step"] = nimble_train_launches[name]
+        if reading is not None:
+            k["nimble"] = reading
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -1,4 +1,5 @@
-"""MANO model asset (a copy of hifihr_tpu/assets/mano_right.npz)."""
+"""Hand model assets: MANO (a copy of hifihr_tpu/assets/mano_right.npz) and
+NIMBLE (a copy of hifihr_tpu/assets/nimble_placeholder.npz)."""
 
 from __future__ import annotations
 
@@ -8,7 +9,13 @@ from typing import NamedTuple
 
 import numpy as np
 
-DEFAULT_MANO_NPZ = os.path.join(os.path.dirname(os.path.abspath(__file__)), "mano_right.npz")
+_ASSET_DIR = os.path.dirname(os.path.abspath(__file__))
+DEFAULT_MANO_NPZ = os.path.join(_ASSET_DIR, "mano_right.npz")
+# a converted licensed NIMBLE release (assets/nimble.npz, the same schema)
+# takes precedence over the MANO-derived placeholder, as in the JAX package
+DEFAULT_NIMBLE_NPZ = os.path.join(_ASSET_DIR, "nimble.npz")
+if not os.path.exists(DEFAULT_NIMBLE_NPZ):
+    DEFAULT_NIMBLE_NPZ = os.path.join(_ASSET_DIR, "nimble_placeholder.npz")
 
 
 class ManoModel(NamedTuple):
@@ -27,3 +34,34 @@ class ManoModel(NamedTuple):
 def load_mano_model(path: str | None = None) -> ManoModel:
     with np.load(path or DEFAULT_MANO_NPZ) as z:
         return ManoModel(**{k: z[k] for k in ManoModel._fields})
+
+
+class NimbleModel(NamedTuple):
+    """The NIMBLE asset schema of hifihr_tpu/hand/nimble.py::NimbleModel."""
+
+    v_template: np.ndarray  # (5990, 3)
+    faces: np.ndarray  # (11926, 3) int32
+    shapedirs: np.ndarray  # (5990, 3, 20)
+    J_regressor: np.ndarray  # (25, 5990)
+    lbs_weights: np.ndarray  # (5990, 25); the first 16 columns skin
+    pose_basis: np.ndarray  # (30, 45) pose PCA over the 15 finger joints
+    hands_mean: np.ndarray  # (45,)
+    tex_mean: np.ndarray  # (5990, 3) per-vertex albedo
+    tex_basis: np.ndarray  # (5990, 3, 10)
+    mano_vertex_map: np.ndarray  # (778,) int32
+    parents: np.ndarray  # (16,) int32
+    posedirs: np.ndarray | None = None  # (5990, 3, 135) pose correctives
+    vert_uv: np.ndarray | None = None  # (V, 2) in [0, 1]
+    tex_mean_uv: np.ndarray | None = None  # (h, w, 3) diffuse mean map
+    tex_basis_uv: np.ndarray | None = None  # (h, w, 3, T)
+    face_uv: np.ndarray | None = None  # (F, 3, 2) per-corner seamed atlas
+    normal_mean_uv: np.ndarray | None = None  # (h, w, 3) tangent space, [0, 1]
+    normal_basis_uv: np.ndarray | None = None  # (h, w, 3, T)
+    spec_mean_uv: np.ndarray | None = None  # (h, w, 1)
+    spec_basis_uv: np.ndarray | None = None  # (h, w, 1, T)
+
+
+@functools.lru_cache(maxsize=2)
+def load_nimble_model(path: str | None = None) -> NimbleModel:
+    with np.load(path or DEFAULT_NIMBLE_NPZ) as z:
+        return NimbleModel(**{k: z[k] for k in NimbleModel._fields if k in z.files})

@@ -7,13 +7,14 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 ENCODERS = ("res18", "res50", "res101")
+HAND_MODELS = ("mano", "nimble")
 AA_MODES = ("msaa", "ssaa")
 BASE_LOSS_FNS = ("L1", "L2")
 OPTIMIZERS = ("Adam", "AdamW")
 # the branches of losses/stack.py that the port has; the photometric triples
 # fire on presence (texture_con, segms_gt), not by name
-PORTED_LOSSES = ("joint_2d", "joint_3d", "vert_3d", "bone_direc", "mscale", "sil", "iou",
-                 "mshape", "mpose")
+PORTED_LOSSES = ("joint_2d", "joint_3d", "vert_3d", "bone_direc", "edge_length", "mscale", "sil",
+                 "iou", "mshape", "mpose", "mtex")
 STEPPED_LAMBDAS = ("j2d_gt", "shape", "pose", "tex_reg")
 
 
@@ -30,6 +31,9 @@ class Config:
     # and shading runs once per pixel; 'ssaa': reference-exact, rasterise
     # and shade at aa_factor x the resolution, then average-pool
     aa_mode: str = "msaa"
+    # NIMBLE's MSAA render samples its appearance at the face corners
+    # (False, per-fragment UV sampling, is not ported)
+    nimble_corner_tex: bool = True
     # encoder compute dtype; parameters stay float32
     compute_dtype: str = "bfloat16"
     rgb2hm: bool = False
@@ -48,6 +52,7 @@ class Config:
     lambda_bone_direc: float = 0.1
     lambda_ssim_tex: float = 0.001
     lambda_mscale: float = 0.1
+    lambda_edge_len: float = 0.1
     # stepped schedules: value_list[i] applies from epoch steps[i-1]
     lambda_j2d_gt_list: tuple = (1e-5,)
     lambda_j2d_gt_steps: tuple = ()
@@ -70,10 +75,13 @@ class Config:
     def __post_init__(self):
         if self.pretrain not in ENCODERS:
             raise ValueError(f"pretrain={self.pretrain!r}: the port has {ENCODERS}")
-        if self.hand_model != "mano":
-            raise NotImplementedError(f"hand_model={self.hand_model!r}: the port has 'mano' only")
+        if self.hand_model not in HAND_MODELS:
+            raise NotImplementedError(f"hand_model={self.hand_model!r}: the port has {HAND_MODELS}")
         if self.aa_mode not in AA_MODES:
             raise NotImplementedError(f"aa_mode={self.aa_mode!r}: the port has {AA_MODES}")
+        if self.hand_model == "nimble" and self.render and (self.aa_mode != "msaa" or not self.nimble_corner_tex):
+            raise NotImplementedError("NIMBLE renders in the port with aa_mode='msaa' and nimble_corner_tex=True "
+                                      "only; the per-fragment UV path is not ported")
         if self.rgb2hm:
             raise NotImplementedError("rgb2hm: the heatmap branch is not ported")
         if self.compute_dtype not in ("bfloat16", "float32"):
@@ -98,4 +106,6 @@ class Config:
     @property
     def ncomps(self):
         """(shape, pose, tex) component counts (models_res_nimble.py:55-60)."""
+        if self.hand_model == "nimble":
+            return (20, 30, 10)
         return (10, 48, None)

@@ -240,8 +240,15 @@ msaa_fine_kernel(const float* __restrict__ coef,     // (B, F, 15)
 
 }  // namespace
 
-// The route: zero fill of `mask` (B x T x T x ceil(F / 32) int32 scratch,
-// T = ceil(S / 16)), the bin kernel, the fine kernel, in that order on
+// The 32-bit words of the route's tile bitmasks: B x T x T x ceil(F / 32),
+// T = ceil(S / kTile). The wrapper sizes its scratch with this.
+extern "C" long long hifihr_msaa_mask_words(int B, int F, int S) {
+  const long long T = (S + kTile - 1) / kTile;
+  return (long long)B * T * T * ((F + 31) / 32);
+}
+
+// The route: zero fill of `mask` (hifihr_msaa_mask_words(B, F, S) words of
+// int32 scratch), the bin kernel, the fine kernel, in that order on
 // `stream`, without synchronising. Returns the first nonzero cudaError_t (0 on
 // success) and adds one to *launched (a host int) for each of them that was
 // enqueued. With F = 0 only the fine kernel runs.

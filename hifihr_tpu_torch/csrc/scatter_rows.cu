@@ -43,7 +43,10 @@
 // first version had. A block with no covered row returns before it reads any
 // gradient. Then each block takes the path that suits its own runs:
 //   - mean run shorter than kLongRun rows, or rows too wide to stage
-//     (D > kStage / 256, on no caller's path): the first version's path. The
+//     (D > kStage / 256 = 28): the first version's path. NIMBLE's
+//     48-float per-pixel row takes it whatever its runs, and the backward of
+//     its corner gathers (D = 9 and 3, idx = the flat faces, runs of one
+//     row) for their short runs. The
 //     threads walk the block's contiguous rows * D values with coalesced
 //     4-byte loads, kBatch in flight per lane, and add each covered value
 //     with one fire-and-forget atomicAdd (RED.ADD.F32 in L2); consecutive

@@ -1,5 +1,5 @@
-"""Joint-order constants used by the MANO layer and `regress_joints_frei`
-(copied from hifihr_tpu/geometry/joints.py).
+"""Joint-order constants used by the MANO and NIMBLE layers and
+`regress_joints_frei` (copied from hifihr_tpu/geometry/joints.py).
 
 FreiHAND order: 0 wrist; 1-4 thumb; 5-8 index; 9-12 middle; 13-16 ring;
 17-20 pinky (base -> tip).
@@ -8,6 +8,35 @@ FreiHAND order: 0 wrist; 1-4 thumb; 5-8 index; 9-12 middle; 13-16 ring;
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+from hifihr_tpu_torch import constant
+
+NUM_JOINTS = 21
+
+
+def _perm_from_mapping(mapping: dict[int, int]) -> np.ndarray:
+    """mapping {src_idx: dst_idx} -> gather indices p with out = in[p]."""
+    p = np.zeros(NUM_JOINTS, dtype=np.int32)
+    for src, dst in mapping.items():
+        p[dst] = src
+    return p
+
+
+# legacy MANO joint order -> FreiHAND order (reference Mano2Frei)
+_MANO2FREI = {0: 0,
+              1: 5, 2: 6, 3: 7, 4: 8,
+              5: 9, 6: 10, 7: 11, 8: 12,
+              9: 17, 10: 18, 11: 19, 12: 20,
+              13: 13, 14: 14, 15: 15, 16: 16,
+              17: 1, 18: 2, 19: 3, 20: 4}
+MANO_TO_FREI = _perm_from_mapping(_MANO2FREI)
+
+
+def remap(joints: torch.Tensor, perm) -> torch.Tensor:
+    """Apply a joint permutation: (..., 21, D) -> (..., 21, D); the index
+    list is copied to the device once."""
+    return joints.index_select(-2, constant(perm, joints.device, torch.int64))
 
 # MANO kinematic joints (16) regressed by J_regressor, placed in the 21-joint
 # FreiHAND order; tips come from mesh vertices

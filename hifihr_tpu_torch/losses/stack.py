@@ -1,8 +1,8 @@
 """The loss stack, with the branches the flagship train step fires
 (counterpart of hifihr_tpu/losses/stack.py::LossComputer).
 
-Ported branches: joint_2d, joint_3d, vert_3d, bone_direc, mscale, sil, iou,
-mshape and mpose by name (config.PORTED_LOSSES; Config raises on any other),
+Ported branches: joint_2d, joint_3d, vert_3d, bone_direc, edge_length,
+mscale, sil, iou, mshape, mpose and mtex by name (config.PORTED_LOSSES; Config raises on any other),
 and both photometric triples by presence: texture_self, mrgb_self and
 ssim_tex_self when the batch carries `texture_con`, texture, mrgb and
 ssim_tex when it carries `segms_gt`. The reference's unit mix is kept:
@@ -47,6 +47,7 @@ class LossComputer:
         lam_j2d_gt = sched.get("lambda_j2d_gt", cfg.lambda_at_epoch("j2d_gt", 0))
         lam_shape = sched.get("lambda_shape", cfg.lambda_at_epoch("shape", 0))
         lam_pose = sched.get("lambda_pose", cfg.lambda_at_epoch("pose", 0))
+        lam_tex_reg = sched.get("lambda_tex_reg", cfg.lambda_at_epoch("tex_reg", 0))
         base = self.base_loss
         d = {}
 
@@ -60,6 +61,9 @@ class LossComputer:
             conf = torch.ones_like(examples["j2d_gt"][..., :1])
             d["bone_direc"] = cfg.lambda_bone_direc * basic.bone_direction_loss(
                 outputs["j2d"], examples["j2d_gt"], conf)
+        if "edge_length" in loss_used:
+            d["edge_length"] = cfg.lambda_edge_len * basic.edge_length_loss(
+                outputs["mano_verts"], examples["verts"], outputs["mano_faces"])
         if "mscale" in loss_used:
             joints = outputs["joints"]
             bone = torch.linalg.vector_norm(joints[:, 9] - joints[:, 10], dim=-1)
@@ -97,6 +101,8 @@ class LossComputer:
             d["mshape"] = lam_shape * (outputs["shape_params"] ** 2).mean()
         if "mpose" in loss_used:
             d["mpose"] = lam_pose * (outputs["pose_params"] ** 2).mean()
+        if "mtex" in loss_used and outputs.get("texture_params") is not None:
+            d["mtex"] = lam_tex_reg * (outputs["texture_params"] ** 2).mean()
 
         d["total"] = sum(d.values()) if d else outputs["joints"].new_zeros(())
         return d

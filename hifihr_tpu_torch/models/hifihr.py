@@ -1,8 +1,10 @@
-"""Composite hand reconstruction model, MANO branch (counterpart of
-hifihr_tpu/models/hifihr.py::HiFiHR and attach_j2d).
+"""Composite hand reconstruction model, MANO and NIMBLE branches
+(counterpart of hifihr_tpu/models/hifihr.py::HiFiHR and attach_j2d).
 
-encoder -> light estimator -> hand parameter heads -> MANO -> root-centering
--> MSAA or SSAA render (`config.aa_mode`). Outputs keep the JAX keys and layouts: images NHWC, re_img
+encoder -> light estimator -> hand parameter heads -> MANO or NIMBLE ->
+root-centering -> MSAA or SSAA render (`config.aa_mode`; NIMBLE renders
+through the MSAA corner path, its PCA appearance sampled at the face
+corners). Outputs keep the JAX keys and layouts: images NHWC, re_img
 (B, S, S, 3), re_sil (B, S, S, 1) in {0, 255}, re_depth (B, S, S),
 maskRGBs. The encoder runs in `config.compute_dtype` (bf16 autocast on the
 card); everything after it runs in fp32.
@@ -17,39 +19,49 @@ from torch import nn
 
 from hifihr_tpu_torch import constant
 from hifihr_tpu_torch.config import Config
+from hifihr_tpu_torch.geometry.joints import MANO_TO_FREI, remap
 from hifihr_tpu_torch.geometry.projection import orthographic_project, perspective_project
 from hifihr_tpu_torch.hand.mano import ManoLayer, regress_joints_frei
+from hifihr_tpu_torch.hand.nimble import NimbleLayer
 from hifihr_tpu_torch.networks.heads import HandEncoder, LightEstimator
 from hifihr_tpu_torch.networks.resnet import ResNetEncoder
 from hifihr_tpu_torch.render.renderer import PhongRenderer, RenderSettings
 from hifihr_tpu_torch.render.shading import DirectionalLight
 
 ROOT_ID = 9  # FreiHAND middle-MCP root
+ROOT_ID_NIMBLE = 11  # NIMBLE's 25-joint root
 
 
 class HiFiHR(nn.Module):
     """Parameter names follow the flax tree (`encoder.backbone.layer1_0...`,
-    `hand_encoder.base_fc0`, `light_estimator.conv1`, `vert_tex`), so
-    `hifihr_tpu_torch.convert.state_dict_from_flax` maps them one to one."""
+    `hand_encoder.base_fc0`, `light_estimator.conv1`, `vert_tex` for MANO),
+    so `hifihr_tpu_torch.convert.state_dict_from_flax` maps them one to
+    one."""
 
     def __init__(self, config: Config):
         super().__init__()
         self.config = config
         self.encoder = ResNetEncoder(config.pretrain)
         backbone = self.encoder.backbone
-        shape_nc, pose_nc, _ = config.ncomps
+        shape_nc, pose_nc, tex_nc = config.ncomps
         self.hand_encoder = HandEncoder(backbone.out_channels, shape_nc, pose_nc,
-                                        config.use_mean_shape)
+                                        config.use_mean_shape, config.hand_model, tex_nc, config.render)
         if config.light_estimation:
             self.light_estimator = LightEstimator(backbone.low_channels)
-        self.mano = ManoLayer(ncomps=pose_nc - 3)
-        if config.render:
-            self.vert_tex = nn.Parameter(torch.zeros(778, 3))
-            self.renderer = PhongRenderer(
-                self.mano.faces_np, self.mano.v_template_np,
-                RenderSettings(image_size=config.image_size, aa_factor=config.aa_factor,
-                               aa_mode=config.aa_mode),
-            )
+        settings = RenderSettings(image_size=config.image_size, aa_factor=config.aa_factor,
+                                  aa_mode=config.aa_mode)
+        if config.hand_model == "mano":
+            self.mano = ManoLayer(ncomps=pose_nc - 3)
+            if config.render:
+                self.vert_tex = nn.Parameter(torch.zeros(778, 3))
+                self.renderer = PhongRenderer(self.mano.faces_np, self.mano.v_template_np, settings)
+        else:
+            self.nimble = NimbleLayer()
+            self.mano = ManoLayer()  # supplies mano_faces only
+            if config.render:
+                nb = self.nimble
+                self.renderer = PhongRenderer(nb.faces_np, nb.v_template_np, settings, face_uv=nb.face_uv_np,
+                                              corner_mean=nb.corner_mean_np, corner_basis=nb.corner_basis_np)
 
     def _encoder_autocast(self, device: torch.device):
         if self.config.compute_dtype == "bfloat16":
@@ -74,26 +86,37 @@ class HiFiHR(nn.Module):
 
         hand_params = self.hand_encoder(features)
         outputs = dict(hand_params)
-        mano_out = self.mano(hand_params["pose_params"], hand_params["shape_params"])
-        verts = mano_out.verts
-        joints = regress_joints_frei(verts, self.mano.J_regressor)
-        outputs["tsa_poses"] = mano_out.full_pose
-
-        if dat_name == "HO3D" and not mode_train:
-            pred_root = joints[:, 0:1]
+        if cfg.hand_model == "mano":
+            mano_out = self.mano(hand_params["pose_params"], hand_params["shape_params"])
+            verts = mano_out.verts
+            joints = regress_joints_frei(verts, self.mano.J_regressor)
+            outputs["tsa_poses"] = mano_out.full_pose
         else:
-            pred_root = joints[:, ROOT_ID:ROOT_ID + 1]
+            outputs.update(self.nimble(hand_params))
+            joints = remap(outputs["joints"], MANO_TO_FREI)  # legacy MANO order -> FreiHAND
+            verts = outputs["mano_verts"]
+
+        ho3d_eval = dat_name == "HO3D" and not mode_train
+        pred_root = joints[:, 0:1] if ho3d_eval else joints[:, ROOT_ID:ROOT_ID + 1]
         outputs["joints"] = joints - pred_root
         outputs["mano_verts"] = verts - pred_root
+        if cfg.hand_model == "nimble":
+            nj = outputs["nimble_joints"]
+            nroot = nj[:, 0:1] if ho3d_eval else nj[:, ROOT_ID_NIMBLE:ROOT_ID_NIMBLE + 1]
+            outputs["nimble_joints"] = nj - nroot
 
         if cfg.render and Ks is not None and root_xyz is not None:
-            render_verts = outputs["mano_verts"] + root_xyz
+            if cfg.hand_model == "mano":
+                render_verts, albedo, tex_coef = outputs["mano_verts"] + root_xyz, self._vertex_albedo(b), None
+            else:  # offset by the NIMBLE root
+                render_verts = outputs["skin_verts"] - nroot + root_xyz
+                albedo, tex_coef = outputs["skin_albedo"], hand_params["texture_params"]
             if light_params is not None:
                 light = DirectionalLight.from_estimator(light_params["colors"],
                                                         light_params["directions"])
             else:
                 light = DirectionalLight.default(b, images.dtype, images.device)
-            rgba = self.renderer(render_verts, self._vertex_albedo(b), Ks[:, :3, :3], light)
+            rgba = self.renderer(render_verts, albedo, Ks[:, :3, :3], light, tex_coef=tex_coef)
             re_sil = (rgba[..., 3:4] > 0).to(images.dtype) * 255.0
             outputs["re_img"] = rgba[..., :3]
             outputs["re_sil"] = re_sil

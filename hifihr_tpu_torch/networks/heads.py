@@ -24,20 +24,29 @@ class MMPool(nn.Module):
 
 
 class HandEncoder(nn.Module):
-    """features (B, in_dim) -> MANO parameter dict (pose, shape, scale,
-    trans, rot)."""
+    """features (B, in_dim) -> hand parameter dict (pose, shape, texture,
+    scale, trans, rot). MANO has a 3-dof rot head and no texture; NIMBLE has
+    no rot head (None) and a texture head when the model renders, zeros
+    when it does not."""
 
     def __init__(self, in_dim: int, shape_ncomp: int = 10, pose_ncomp: int = 48,
-                 use_mean_shape: bool = False):
+                 use_mean_shape: bool = False, hand_model: str = "mano",
+                 tex_ncomp: int | None = None, if_render: bool = True):
         super().__init__()
         self.shape_ncomp = shape_ncomp
+        self.tex_ncomp = tex_ncomp
         self.use_mean_shape = use_mean_shape
+        self.hand_model = hand_model
         self.base_fc0 = nn.Linear(in_dim, 1024)
         self.base_bn0 = BatchNorm1d(1024)
         self.base_fc1 = nn.Linear(1024, 512)
         self.base_bn1 = BatchNorm1d(512)
         self.heads = {"pose": ((128,), pose_ncomp), "scale": ((128, 32), 1),
-                      "trans": ((128, 32), 3), "rot": ((128, 32), 3)}
+                      "trans": ((128, 32), 3)}
+        if hand_model == "mano":
+            self.heads["rot"] = ((128, 32), 3)
+        elif if_render:
+            self.heads["tex"] = ((128,), tex_ncomp)
         if not use_mean_shape:
             self.heads["shape"] = ((128,), shape_ncomp)
         for name, (hidden, out) in self.heads.items():
@@ -60,13 +69,17 @@ class HandEncoder(nn.Module):
             shape = base.new_zeros((base.shape[0], self.shape_ncomp))
         else:
             shape = self._head("shape", base)
+        texture = None
+        if self.hand_model == "nimble":
+            texture = self._head("tex", base) if "tex" in self.heads else base.new_zeros(
+                (base.shape[0], self.tex_ncomp))
         return {
             "pose_params": self._head("pose", base),
             "shape_params": shape,
-            "texture_params": None,
+            "texture_params": texture,
             "scale": self._head("scale", base),
             "trans": self._head("trans", base),
-            "rot": self._head("rot", base),
+            "rot": self._head("rot", base) if "rot" in self.heads else None,
         }
 
 

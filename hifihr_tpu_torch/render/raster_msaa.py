@@ -38,7 +38,6 @@ from hifihr_tpu_torch import constant, kernels
 from hifihr_tpu_torch.render.mesh import gather_face_rows
 
 N_REC = 15  # floats per face record
-TILE = 16  # pixels per side of a tile of the CUDA route
 _INERT = np.zeros(N_REC, np.float32)  # the record of a face that never covers
 _INERT[2] = -1.0
 
@@ -162,8 +161,8 @@ def rasterize_msaa_plain(verts_screen: torch.Tensor, faces: torch.Tensor, image_
 def msaa_select_cuda(coef: torch.Tensor, bbox: torch.Tensor, image_size: int,
                      samples: int = 3):
     """Launch the route of csrc/raster_msaa.cu on the prep's records: zero
-    fill of the (B, T, T, ceil(F / 32)) tile bitmasks (T = ceil(S / 16)),
-    bin kernel, fine kernel. Counts the route on `rasterize_msaa.launches`
+    fill of the (B, T, T, ceil(F / 32)) tile bitmasks (T = ceil(S / 16);
+    sized by the C side, `hifihr_msaa_mask_words`), bin kernel, fine kernel. Counts the route on `rasterize_msaa.launches`
     and adds the launches the C route counted as it enqueued them to
     `rasterize_msaa.device_launches`."""
     B, F, _ = coef.shape
@@ -181,8 +180,7 @@ def msaa_select_cuda(coef: torch.Tensor, bbox: torch.Tensor, image_size: int,
     if not 1 <= samples * samples <= 32 or B > 65535:
         raise ValueError(f"samples={samples}, B={B} outside the kernel's range")
     lib = kernels.load("raster_msaa")
-    tiles = -(-S // TILE)
-    mask = torch.empty((B, tiles, tiles, -(-F // 32)), dtype=torch.int32, device=coef.device)
+    mask = torch.empty(lib.hifihr_msaa_mask_words(B, F, S), dtype=torch.int32, device=coef.device)
     fid = torch.empty((B, S, S), dtype=torch.int32, device=coef.device)
     cov = torch.empty((B, S, S), dtype=torch.float32, device=coef.device)
     zbuf = torch.empty((B, S, S), dtype=torch.float32, device=coef.device)

@@ -5,6 +5,12 @@ PhongRenderer with vertex colours), in two anti-aliasing modes:
   aa_factor x aa_factor subsample coverage at base resolution -> barycentric
   interpolation of albedo and normals through K2 -> fragment positions from
   the pixel ray -> Phong shading -> RGB * coverage, coverage, depth.
+  NIMBLE's corner path (`tex_coef` given and corner tables present, as JAX's
+  `_render_corner`): the PCA appearance evaluated at the face corners
+  (diffuse, tangent-space normal and spec weight, clipped to [0, 1]) rides
+  the packed row beside the vertex tangents and normals, 9 + 3 (6 + 7) = 48
+  floats, and the shading applies the normal and spec maps; the gradient
+  reaches `tex_coef` through K3.
 - 'ssaa' (reference-exact): project with the intrinsics scaled by
   aa_factor -> K4 face selection at every pixel centre of the supersampled
   image (no gradient, outside the checkpoint) -> barycentric interpolation
@@ -30,7 +36,7 @@ from torch.utils.checkpoint import checkpoint
 from hifihr_tpu_torch import constant
 from hifihr_tpu_torch.render.interpolate import (barycentric_coords, fragment_interpolate,
                                                  interpolate_attribute)
-from hifihr_tpu_torch.render.mesh import vertex_normals
+from hifihr_tpu_torch.render.mesh import vertex_normals, vertex_normals_and_tangents
 from hifihr_tpu_torch.render.raster import project_to_screen, rasterize_face_id
 from hifihr_tpu_torch.render.raster_msaa import rasterize_msaa
 from hifihr_tpu_torch.render.shading import DirectionalLight, phong_shade
@@ -94,12 +100,25 @@ class PhongRenderer(nn.Module):
     non-persistent buffer, so `.to(device)` moves them and the state dict
     does not hold them."""
 
-    def __init__(self, faces, sort_template, settings: RenderSettings = RenderSettings()):
+    def __init__(self, faces, sort_template, settings: RenderSettings = RenderSettings(),
+                 face_uv=None, corner_mean=None, corner_basis=None):
+        """faces (F, 3); optional per-face tables, permuted with the faces:
+        face_uv (F, 3, 2) atlas corners, and the corner-sampled appearance
+        corner_mean (F, 3, 7) and corner_basis (F, 3, 7, T) (NIMBLE)."""
         super().__init__()
-        faces = np.asarray(faces)
-        faces = faces[morton_face_order(sort_template, faces)]
-        self.register_buffer("faces", torch.as_tensor(faces, dtype=torch.int64),
-                             persistent=False)
+        order = morton_face_order(sort_template, faces)
+
+        def buf(name, a, dtype=torch.float32):
+            t = None if a is None else torch.as_tensor(np.asarray(a)[order], dtype=dtype)
+            self.register_buffer(name, t, persistent=False)
+
+        buf("faces", faces, torch.int64)
+        buf("face_uv", face_uv)
+        buf("corner_mean", corner_mean)
+        buf("corner_basis", corner_basis)
+        if corner_mean is not None and (face_uv is None or np.shape(corner_mean)[-1] != 7):
+            raise ValueError("the corner path needs face_uv and 7 appearance channels "
+                             "(diffuse, normal map, spec weight)")
         self.settings = settings
 
     def select_faces(self, verts_cam: torch.Tensor, K: torch.Tensor):
@@ -127,16 +146,21 @@ class PhongRenderer(nn.Module):
         return barycentric_coords(face_id, verts_screen, self.faces), verts_screen
 
     def forward(self, verts_cam: torch.Tensor, vert_colors: torch.Tensor, K: torch.Tensor,
-                 light: DirectionalLight | None = None) -> torch.Tensor:
+                light: DirectionalLight | None = None,
+                tex_coef: torch.Tensor | None = None) -> torch.Tensor:
         """verts_cam (B, V, 3) camera space (z > 0 forward), vert_colors
-        (B, V, 3) albedo, K (B, 3, 3) pixel intrinsics ->
+        (B, V, 3) albedo, K (B, 3, 3) pixel intrinsics, tex_coef (B, T) PCA
+        appearance coefficients (NIMBLE) ->
         (B, S, S, 5) [rgb * coverage, coverage, camera z (0 on background)];
         in 'ssaa' mode each channel is the mean of its aa_factor^2
-        supersampled pixels."""
+        supersampled pixels. With tex_coef and corner tables, MSAA renders
+        through the corner path and vert_colors is not read."""
         s = self.settings
         if light is None:
             light = DirectionalLight.default(verts_cam.shape[0], verts_cam.dtype,
                                              verts_cam.device)
+        if s.aa_mode == "msaa" and tex_coef is not None and self.corner_mean is not None:
+            return self._forward_corner(verts_cam, K, light, tex_coef)
         if s.aa_mode == "ssaa":
             return self._forward_ssaa(verts_cam, vert_colors, K, light)
         face_id, coverage = self.select_faces(verts_cam, K)
@@ -147,6 +171,29 @@ class PhongRenderer(nn.Module):
         pix_p = _pixel_ray_points(zbuf, mask, K, s.image_size)
         nc = vert_colors.shape[-1]
         rgb = phong_shade(pix[..., :nc], pix[..., nc:nc + 3], pix_p, light)
+        rgb = rgb * coverage[..., None]
+        covered = (coverage > 0).to(rgb.dtype)[..., None]
+        return torch.cat([rgb, coverage[..., None], pix_p[..., 2:3] * covered], dim=-1)
+
+    def corner_appearance(self, tex_coef: torch.Tensor) -> torch.Tensor:
+        """The PCA appearance at every face corner, (B, F, 3, 7) in [0, 1],
+        from tex_coef (B, T)."""
+        T = self.corner_basis.shape[-1]
+        return (self.corner_mean[None] + torch.einsum(
+            "fkct,bt->bfkc", self.corner_basis, tex_coef[:, :T])).clamp(0.0, 1.0)
+
+    def _forward_corner(self, verts_cam, K, light, tex_coef):
+        face_id, coverage = self.select_faces(verts_cam, K)
+        corner_tex = self.corner_appearance(tex_coef)
+        normals, tangents = vertex_normals_and_tangents(verts_cam, self.faces, self.face_uv)
+        # pix: [tangent 3 | normal 3 | diffuse 3 | normal map 3 | spec 1]
+        pix, mask, zbuf = fragment_interpolate(face_id, project_to_screen(verts_cam, K), self.faces,
+                                               torch.cat([tangents, normals], dim=-1),
+                                               corner_attrs_batched=corner_tex)
+        pix_p = _pixel_ray_points(zbuf, mask, K, self.settings.image_size)
+        sampled = pix[..., 6:13].clamp(0.0, 1.0)
+        rgb = phong_shade(sampled[..., :3], pix[..., 3:6], pix_p, light, normal_map=sampled[..., 3:6],
+                          tangents=pix[..., :3], spec_map=sampled[..., 6:7])
         rgb = rgb * coverage[..., None]
         covered = (coverage > 0).to(rgb.dtype)[..., None]
         return torch.cat([rgb, coverage[..., None], pix_p[..., 2:3] * covered], dim=-1)
@@ -171,3 +218,4 @@ class PhongRenderer(nn.Module):
         if not torch.is_grad_enabled():  # eval under inference_mode: nothing to recompute
             return shade(verts_cam, vert_colors)
         return checkpoint(shade, verts_cam, vert_colors, use_reentrant=False, preserve_rng_state=False)
+

@@ -1,9 +1,11 @@
 """Phong shading with one directional light, camera space (counterpart of
-hifihr_tpu/render/shading.py with its default Materials and without the
-appearance maps).
+hifihr_tpu/render/shading.py with its default Materials).
 
 pixel = texel * (light_ambient * 1.0 + light_diffuse * 0.8 * N.L)
-        + light_specular * 0.2 * (V.R)^30
+        + light_specular * 0.2 * (V.R)^30 [* spec_map]
+
+with N perturbed by a tangent-space normal map where one is given (NIMBLE's
+appearance: diffuse, normal and specular maps).
 """
 
 from __future__ import annotations
@@ -42,9 +44,19 @@ def _safe_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
 
 
 def phong_shade(texels: torch.Tensor, normals: torch.Tensor, points: torch.Tensor,
-                light: DirectionalLight) -> torch.Tensor:
-    """texels, normals (unnormalised), points: (B, H, W, 3) -> rgb (B, H, W, 3)."""
+                light: DirectionalLight, normal_map: torch.Tensor | None = None,
+                tangents: torch.Tensor | None = None,
+                spec_map: torch.Tensor | None = None) -> torch.Tensor:
+    """texels, normals (unnormalised), points: (B, H, W, 3) -> rgb (B, H, W, 3).
+    Optional maps: normal_map (B, H, W, 3) in [0, 1], tangent space, applied
+    in the frame of the interpolated `tangents` (B, H, W, 3) made orthogonal
+    to the normal; spec_map (B, H, W, 1) scales the specular term."""
     n = _safe_normalize(normals)
+    if normal_map is not None and tangents is not None:
+        t = _safe_normalize(tangents - (tangents * n).sum(-1, keepdim=True) * n)
+        bt = torch.linalg.cross(n, t)
+        nm = normal_map * 2.0 - 1.0
+        n = _safe_normalize(t * nm[..., 0:1] + bt * nm[..., 1:2] + n * nm[..., 2:3])
     l = _safe_normalize(light.direction)[:, None, None, :]
     ndl_raw = (n * l).sum(-1, keepdim=True)
     ndl = ndl_raw.clamp(min=0.0)
@@ -59,4 +71,6 @@ def phong_shade(texels: torch.Tensor, normals: torch.Tensor, points: torch.Tenso
     cos_alpha = torch.where(ndl > 0, cos_alpha, torch.zeros_like(cos_alpha))
     spec = (MAT_SPECULAR * light.specular_color[:, None, None, :]
             * torch.pow(cos_alpha, MAT_SHININESS))
+    if spec_map is not None:
+        spec = spec * spec_map
     return texels * (amb + dif) + spec

@@ -41,7 +41,8 @@ def test_config_from_one_dict():
     defaults = Config()
     for k in d:
         assert getattr(defaults, k) == getattr(JConfig(), k)
-    for bad in (dict(hand_model="nimble"), dict(aa_mode="fxaa"), dict(rgb2hm=True)):
+    for bad in (dict(hand_model="mano_new"), dict(hand_model="nimble", aa_mode="ssaa"),
+                dict(hand_model="nimble", nimble_corner_tex=False), dict(aa_mode="fxaa"), dict(rgb2hm=True)):
         with pytest.raises(NotImplementedError):
             Config(**bad)
 

@@ -42,14 +42,15 @@ def randomize_variables(variables: dict, seed: int) -> dict:
     return v
 
 
-def jax_msaa_select_op_by_op(self, verts_cam, K_base):
+def jax_msaa_select_op_by_op(self, verts_cam, K_base, record=None):
     """Stands in for hifihr_tpu's PhongRenderer._select_faces_msaa: the
     Pallas MSAA kernel in interpret mode (the JAX CPU path otherwise emulates
     MSAA from an SSAA raster, which picks faces by another rule), run op by
     op in a host callback. Under jit, XLA contracts the projection's and the
     prep's multiply-adds and can move a face id on an edge-on subsample;
-    op by op every operation rounds on its own, as in the port. The callback
-    takes stop-gradient inputs, so it also runs inside jax.grad."""
+    op by op every operation rounds on its own, as in the port. Appends each
+    call's (face_id, coverage) to `record` when one is given. The callback takes
+    stop-gradient inputs, so it also runs inside jax.grad."""
     import jax
     import jax.numpy as jnp
 
@@ -63,6 +64,8 @@ def jax_msaa_select_op_by_op(self, verts_cam, K_base):
             vs = raster_jax.project_to_screen(jnp.asarray(verts), jnp.asarray(K))
             fid, cov, _ = rasterize_msaa_pallas(vs, jnp.asarray(faces), size, samples=samples,
                                                 interpret=True)
+        if record is not None:
+            record.append((np.asarray(fid), np.asarray(cov)))
         return np.asarray(fid), np.asarray(cov)
 
     b = verts_cam.shape[0]
@@ -119,3 +122,25 @@ def posed_mano_verts(batch: int, seed: int, z: float = 0.5) -> np.ndarray:
     pose = jnp.asarray(rng.randn(batch, 48) * 0.3, jnp.float32)
     beta = jnp.asarray(rng.randn(batch, 10) * 0.5, jnp.float32)
     return np.asarray(mano(pose, beta).verts) + np.asarray([0.0, 0.0, z], np.float32)
+
+
+def nimble_params(batch: int, seed: int) -> dict:
+    """Seeded non-trivial NIMBLE parameters as numpy: PCA pose (B, 30),
+    shape (B, 20) and appearance (B, 10)."""
+    rng = np.random.RandomState(seed)
+    return {"pose_params": (rng.randn(batch, 30) * 0.5).astype(np.float32),
+            "shape_params": (rng.randn(batch, 20) * 0.5).astype(np.float32),
+            "texture_params": (rng.randn(batch, 10) * 0.5).astype(np.float32)}
+
+
+def posed_nimble_verts(batch: int, seed: int, z: float = 0.5) -> np.ndarray:
+    """Posed NIMBLE skins in camera space (JAX NimbleLayer on
+    `nimble_params`), placed as the model places them: NIMBLE root (joint
+    11) at (0, 0, z)."""
+    import jax.numpy as jnp
+
+    from hifihr_tpu.hand.nimble import NimbleLayer
+
+    out = NimbleLayer()({k: jnp.asarray(v) for k, v in nimble_params(batch, seed).items()})
+    verts = np.asarray(out["skin_verts"]) - np.asarray(out["nimble_joints"])[:, 11:12]
+    return verts + np.asarray([0.0, 0.0, z], np.float32)
