@@ -2,7 +2,7 @@
 
 Run from the repository root: `python3 chip_smoke.py` (one CUDA card, nvcc
 under /usr/local/cuda or on PATH). `--profile` adds a torch.profiler pass
-over a few eval steps and a few train steps of both render modes. Phases:
+over a few eval steps and a few train steps of every cell. Phases:
 
   1. the card's name and power limit (nvidia-smi)
   2. build the CUDA kernels from hifihr_tpu_torch/csrc/ into
@@ -83,23 +83,47 @@ over a few eval steps and a few train steps of both render modes. Phases:
      at a pixel, and one such pixel moves a photometric term by ~1e-4
      (tests/test_torch_nimble_slice.py). K1 is held exactly on identical
      inputs in phase 11 and on the step's own inputs at steps 1 and 41
- 14. one `{"kernels": [...]}` line: per kernel its time (K1 the whole route,
+ 14. the effb3 eval and train steps: bench's effb3 cell (bench.py:274-275),
+     the flagship with pretrain="effb3" (EfficientNet-b3, 1536-channel
+     features, the light estimator on its 56x56x32 low tap), batch 64: the
+     checks of phases 6 and 7; the fp32 eval step on the card against the
+     CPU on 2 images at 224^2, the fp32 train step at 64 px (light
+     estimation off, 8 images), where the CPU step shades the card's face
+     choice and its own choice is held at 99.5% of pixels or more (the
+     vertices' last bits move a few pixels' nearest face at this depth);
+     under --profile the encoder's device time alone, in channels-last and
+     in plain NCHW, and its share of the step's device time
+ 15. the paper's config, configs/FreiHAND/full_rhd_freihand.json, loaded by
+     Config.from_json (NIMBLE, effb3, L1, 12 losses with the perceptual
+     one on the random-feature fallback): the eval step at its val_batch
+     (16) and the train step at its train_batch (48), at 224^2, on the
+     flagship batch's images with the config's keys and a seeded mask over
+     ~40% of pixels (with an all-zero mask the perceptual term is exactly
+     0): the checks of phases 12 and 13 with its 12 terms, the perceptual
+     term positive, the fp32 steps on the card against the CPU in the
+     config at 32 px (the slice test's size); under --profile the
+     encoder's and the perceptual loss's shares of device time
+ 16. one `{"kernels": [...]}` line: per kernel its time (K1 the whole route,
      by CUDA events, as every kernel's `ms`; each launch's device time
      under `parts_ms`, and for K4 their sum under `device_ms`), launches in one step of
      its path (K1 routes and K2 the eval step, K3 the train step, K4 the
      SSAA eval step; the train step of each path under
-     `launches_train_step`, and every kernel's count in the SSAA steps under
-     `launches_ssaa_eval_step` and `launches_ssaa_train_step`), error
+     `launches_train_step`, and every kernel's count in every other cell's
+     steps under `launches_<cell>_eval_step` and
+     `launches_<cell>_train_step`, for the ssaa, nimble, effb3 and paper
+     cells), error
      against the plain version, the plain version's time, the bound and,
      for K2 and K3, one PyTorch call's time (indexing; `index_add_`); K1,
      K3 and K4 carry their numbers on the train steps' inputs under
-     `train_hand`, K4 also on the NIMBLE-sized scenes (`nimble_sized`);
-     K1, K2 and K3 carry their NIMBLE readings under `nimble` (ms, plain
-     and library ms, bound, and the NIMBLE train steps' inputs), and every
-     kernel its launches in the NIMBLE steps (`launches_nimble_eval_step`,
-     `launches_nimble_train_step`)
+     `train_hand` (MANO's, SSAA's and effb3's), K4 also on the NIMBLE-sized
+     scenes (`nimble_sized`); K1, K2 and K3 carry their NIMBLE readings
+     under `nimble` (ms, plain and library ms, bound, and the NIMBLE and
+     paper train steps' inputs)
 
-Every train step's captured K2 inputs are also held bit-equal to the plain
+Every step phase prints its median, images/s, device busy ms and launches
+per step (torch.profiler over two steps), peak memory and its seconds; the
+train steps also the TF32 mode they ran in (off: make_train_step sets full
+fp32). Every train step's captured K2 inputs are also held bit-equal to the plain
 version, at steps 1 and 41.
 
 Any failed check raises, so the exit code is nonzero; so it is without CUDA.
@@ -117,6 +141,7 @@ import statistics
 import subprocess
 import sys
 import time
+import re
 import warnings
 
 import numpy as np
@@ -138,6 +163,15 @@ FIRED = LOSSES + ("texture_self", "mrgb_self", "ssim_tex_self", "texture", "mrgb
 NIMBLE_FACES = 11926
 K1_PLAIN_IMAGES = 8  # NIMBLE images K1 is held against its plain version on
 # the configuration of tests/test_torch_train_slice.py
+# the paper's full-supervision config (NIMBLE, EfficientNet-b3, L1, 12 losses
+# with the perceptual one), run as its JSON says at its train and val batches;
+# its card-against-CPU check at the slice tests' size
+PAPER_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs", "FreiHAND",
+                            "full_rhd_freihand.json")
+PAPER_SMALL = dict(image_size=32, light_estimation=False, compute_dtype="float32")
+# the batch keys of the config's train queries (images, Ks, joints, scales,
+# verts, masks) as the FreiHAND loader names them
+PAPER_KEYS = ("imgs", "Ks", "root_xyz", "joints", "verts", "segms_gt", "scales")
 SLICE_CFG = dict(pretrain="res18", hand_model="mano", render=True, light_estimation=False, image_size=32,
                  aa_factor=3, aa_mode="msaa", compute_dtype="float32", losses=LOSSES)
 
@@ -183,6 +217,17 @@ def flagship_batch(device) -> dict:
         "segms_gt": zeros(B, S, S), "texture_con": torch.ones(B, device=device),
         "scales": torch.full((B,), 0.0282, device=device),
     }
+
+
+def paper_batch(batch: dict, n: int) -> dict:
+    """The first n images of the flagship batch with the paper config's keys
+    and a seeded mask over ~40% of pixels: with the synthetic batch's
+    all-zero mask the perceptual loss's composite is the image itself, and
+    the term is exactly 0."""
+    mask = np.random.RandomState(3).rand(n, S, S) > 0.6
+    out = {k: v[:n] for k, v in batch.items() if k in PAPER_KEYS}
+    out["segms_gt"] = torch.tensor(mask, dtype=torch.float32, device=batch["imgs"].device)
+    return out
 
 
 def posed_meshes(batch: dict, seed: int = 1):
@@ -882,15 +927,27 @@ PATH_KERNELS = {"msaa": ("K1 msaa_raster", "K2 gather_rows", "K3 scatter_rows"),
                 "ssaa": ("K4 face_raster", "K2 gather_rows", "K3 scatter_rows")}
 
 
-def phase_eval_step(batch: dict, profile: bool, aa_mode: str = "msaa", hand_model: str = "mano") -> dict:
+def step_config(aa_mode: str = "msaa", hand_model: str = "mano", pretrain: str = "res50"):
+    """The flagship steps' configuration (bench.py:52-63): full width and
+    depth, the bench losses, Adam at lr 1e-3; `pretrain="effb3"` is bench's
+    effb3 cell (bench.py:274-275)."""
     from hifihr_tpu_torch.config import Config
+
+    return Config(pretrain=pretrain, hand_model=hand_model, render=True, light_estimation=True,
+                  image_size=S, aa_factor=AA, aa_mode=aa_mode, compute_dtype="bfloat16",
+                  losses=LOSSES, optimizer="Adam", init_lr=1e-3)
+
+
+def phase_eval_step(batch: dict, profile: bool, cfg, path: str, check_cfg, check_batch: dict,
+                    check_what: str) -> dict:
+    """The eval step of `cfg` on `batch`, its checks and its numbers; the
+    same step in fp32 (`check_cfg`) on the card against the CPU on
+    `check_batch`."""
     from hifihr_tpu_torch.models.hifihr import build_model
     from hifihr_tpu_torch.training.steps import make_eval_step
 
+    t0 = time.perf_counter()
     n = batch["imgs"].shape[0]
-    path = f"{hand_model} {aa_mode}"
-    cfg = Config(pretrain="res50", hand_model=hand_model, render=True, light_estimation=True,
-                 image_size=S, aa_factor=AA, aa_mode=aa_mode, compute_dtype="bfloat16")
     model = build_model(cfg, device="cuda", seed=0)
     step = make_eval_step(model, "FreiHand", cfg)
     step(batch)  # cuDNN autotuning and allocator warm-up
@@ -902,10 +959,10 @@ def phase_eval_step(batch: dict, profile: bool, aa_mode: str = "msaa", hand_mode
     launches = read_launches()
     check_route_launches(launches, f"the {path} eval step")
     print(f"{path} eval step launches: {launches}")
-    raster, gather, scatter = PATH_KERNELS[aa_mode]
+    raster, gather, scatter = PATH_KERNELS[cfg.aa_mode]
     check(launches[raster] == 1 and launches[gather] > 0 and launches[scatter] == 0
           and sum(launches.values()) == launches[raster] + launches[gather],
-          f"the {aa_mode} rasteriser once, K2, and no backward or other rasteriser on the eval path: {launches}")
+          f"the {cfg.aa_mode} rasteriser once, K2, and no backward or other rasteriser on the eval path: {launches}")
 
     shapes = {"joints": (n, 21, 3), "mano_verts": (n, 778, 3), "j2d": (n, 21, 2),
               "re_img": (n, S, S, 3), "re_sil": (n, S, S, 1), "re_depth": (n, S, S)}
@@ -919,19 +976,19 @@ def phase_eval_step(batch: dict, profile: bool, aa_mode: str = "msaa", hand_mode
     check(sil_frac > 0.001, f"re_sil covers pixels ({sil_frac})")
     print(f"{path} eval step outputs finite; re_sil covers {sil_frac:.4f} of pixels")
 
-    if aa_mode == "msaa" and hand_model == "mano":  # the flagship in fp32 on 2 images
-        cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
-        eval_card_vs_cpu(cfg32, {k: v[:2].cpu() for k, v in batch.items()}, "the flagship, 2 images")
-    else:
-        eval_card_vs_cpu(Config(**dict(SLICE_CFG, aa_mode=aa_mode, hand_model=hand_model)), slice_batch(),
-                         "res18, 32 px, 8 images")
+    eval_card_vs_cpu(check_cfg, check_batch, check_what)
 
     torch.cuda.reset_peak_memory_stats()
-    print(f"{path} eval step: " + json.dumps(time_steps(lambda: step(batch), n)))
+    numbers = time_steps(lambda: step(batch), n)
+    numbers["device_busy_ms"], numbers["launches_per_step"] = device_profile(lambda: step(batch))
+    print(f"{path} eval step: " + json.dumps(numbers))
     if profile:
-        profile_steps(step, batch)
-        if aa_mode == "msaa" and hand_model == "mano":
+        busy = profile_steps(step, batch)
+        if cfg.pretrain == "res50" and cfg.hand_model == "mano" and cfg.aa_mode == "msaa":
             stage_times(model, batch)
+        if cfg.pretrain == "effb3":
+            encoder_share(model, batch, busy, train=False, what=f"the {path} eval step")
+    print(f"phase {path} eval: {time.perf_counter() - t0:.1f} s")
     return launches
 
 
@@ -1061,32 +1118,36 @@ def one_train_step(cfg, batch: dict, device: str, faces: tuple | None = None):
             {n: p.grad.detach().cpu().clone() for n, p in model.named_parameters()}, own[0] if own else None)
 
 
-def train_config(aa_mode: str, hand_model: str = "mano"):
-    """The flagship train step's configuration: the bench losses, Adam at
-    lr 1e-3."""
-    from hifihr_tpu_torch.config import Config
+def zero_in_exact_arithmetic(name: str) -> bool:
+    """A bias whose gradient is zero in exact arithmetic, so that two
+    devices' rounding noise is all it holds: a Linear bias that feeds a
+    train-mode BatchNorm, and the last BatchNorm bias of EfficientNet blocks
+    1-25, a per-channel constant whose every path ends in a train-mode
+    BatchNorm (tests/test_torch_effb3_slice.py)."""
+    m = re.fullmatch(r"hand_encoder\.base_fc[01]\.bias|encoder\.backbone\.block(\d+)\.bn2\.bias", name)
+    return bool(m) and (m.group(1) is None or int(m.group(1)) >= 1)
 
-    return Config(pretrain="res50", hand_model=hand_model, render=True, light_estimation=True,
-                  image_size=S, aa_factor=AA, aa_mode=aa_mode, compute_dtype="bfloat16",
-                  losses=LOSSES, optimizer="Adam", init_lr=1e-3)
 
-
-def phase_train_step(batch: dict, profile: bool, aa_mode: str = "msaa", hand_model: str = "mano") -> tuple:
-    from hifihr_tpu_torch.config import Config
+def phase_train_step(batch: dict, profile: bool, cfg, label: str, fired: tuple, small_cfg,
+                     small_batch: dict) -> tuple:
+    """The train step of `cfg` on `batch`: its checks, its numbers, and K1,
+    K2, K3 and K4 on its own inputs at step 1 and after the timed steps;
+    the same step in fp32 (`small_cfg`) on the card against the CPU on
+    `small_batch`. `fired` are the loss terms it must compute."""
     from hifihr_tpu_torch.losses.stack import LossComputer
     from hifihr_tpu_torch.models.hifihr import build_model
     from hifihr_tpu_torch.training.steps import make_sched, make_train_step
     from hifihr_tpu_torch.training.train_state import create_train_state
 
-    cfg = train_config(aa_mode, hand_model)
-    label = f"{hand_model} {aa_mode}"
-    nimble = hand_model == "nimble"
+    t0 = time.perf_counter()
+    nimble = cfg.hand_model == "nimble"
     # K1's plain version takes seconds per image batch at NIMBLE's face count
     plain_images = K1_PLAIN_IMAGES if nimble else None
     images = batch["imgs"].shape[0]
     model = build_model(cfg, device="cuda", seed=0)
     state = create_train_state(model, cfg, batch)
-    step = make_train_step(model, LossComputer(cfg), "FreiHand", cfg)
+    loss_computer = LossComputer(cfg)
+    step = make_train_step(model, loss_computer, "FreiHand", cfg)
     sched = make_sched(cfg, 0)
     totals = []
     # the first step renders the seeded init's hand: keep the inputs K1, K2,
@@ -1106,7 +1167,7 @@ def phase_train_step(batch: dict, profile: bool, aa_mode: str = "msaa", hand_mod
     check_route_launches(launches, f"the {label} train step")
     totals.append(d["total"])
     print(f"{label} train step launches: {launches}")
-    path = PATH_KERNELS[aa_mode]
+    path = PATH_KERNELS[cfg.aa_mode]
     check(all(launches[k] > 0 for k in path) and sum(launches[k] for k in path) == sum(launches.values()),
           f"{', '.join(path)} and no other kernel ran on the {label} train path: {launches}")
     # K1, K3 and K4 on the step's own inputs, and K2 bit-equal there: the
@@ -1131,7 +1192,8 @@ def phase_train_step(batch: dict, profile: bool, aa_mode: str = "msaa", hand_mod
     kernels_on(first, "step 1")
     losses = {k: v.item() for k, v in d.items()}
     print(f"{label} train step losses: " + json.dumps(losses))
-    check(set(losses) == set(FIRED) | {"skipped"}, f"the 15 terms, total and skipped: {sorted(losses)}")
+    check(set(losses) == set(fired) | {"total", "skipped"},
+          f"the {len(fired)} terms, total and skipped: {sorted(losses)}")
     check(all(np.isfinite(v) for v in losses.values()), "loss terms finite")
     check(losses["skipped"] == 0.0, "the step was not skipped")
     changed = (state.optimizer.flat != before).float().mean().item()
@@ -1165,42 +1227,120 @@ def phase_train_step(batch: dict, profile: bool, aa_mode: str = "msaa", hand_mod
     check(all(np.isfinite(trajectory)) and int(state.step) == 10, f"10 updates taken ({int(state.step)})")
 
     # fp32 on the card (kernels) against fp32 on the CPU (plain versions), in
-    # the train-slice test's configuration. At the flagship's (res50, 224^2,
-    # random init) one ulp of input moves the CPU's own encoder gradients by
-    # 3%, so no tighter bound could hold there (ROADMAP.md section 3).
-    # NIMBLE's CPU step shades the card's face choice, and its own choice is
-    # held apart (the module docstring, phase 13)
-    small_cfg = Config(**dict(SLICE_CFG, aa_mode=aa_mode, hand_model=hand_model))
-    small = slice_batch()
-    gl, gg, gfaces = one_train_step(small_cfg, small, "cuda")
-    cl, cg, cfaces = one_train_step(small_cfg, small, "cpu", gfaces if nimble else None)
-    if gfaces is not None:
+    # a small configuration. At the flagship's (res50, 224^2, random init)
+    # one ulp of input moves the CPU's own encoder gradients by 3%, so no
+    # tighter bound could hold there (ROADMAP.md section 3). NIMBLE's and
+    # EfficientNet's CPU steps shade the card's face choice, and their own
+    # choice is held apart (the module docstring, phases 13 and 16): the
+    # vertices' last bits move a few pixels' nearest face (effb3 at 64 px:
+    # 11 of 32,768), and such a pixel moves vert_tex's gradient by 2%
+    shade_card_choice = nimble or small_cfg.pretrain == "effb3"
+    gl, gg, gfaces = one_train_step(small_cfg, small_batch, "cuda")
+    cl, cg, cfaces = one_train_step(small_cfg, small_batch, "cpu", gfaces if shade_card_choice else None)
+    if shade_card_choice:
         same = (gfaces[0] == cfaces[0]).float().mean().item()
-        print(f"fp32 {label} train step (res18, 32 px): the CPU's own face choice is the card's at {same} of pixels")
+        print(f"fp32 {label} train step ({small_cfg.pretrain}, {small_cfg.image_size} px): the CPU's own face "
+              f"choice is the card's at {same} of pixels")
         check(same >= 0.995, "the CPU's own face choice agrees with the card's")
-    term_err = {k: abs(gl[k] - cl[k]) / max(abs(cl[k]), 1e-30) for k in FIRED}
+    check(set(gl) == set(cl), "the same terms fire on the card and the CPU")
+    term_err = {k: abs(gl[k] - cl[k]) / max(abs(cl[k]), 1e-30) for k in cl if k != "skipped"}
     grad_err = {}
     for name, ref in cg.items():
-        if name.startswith("hand_encoder.base_fc") and name.endswith(".bias"):
-            continue  # zero in exact arithmetic: a bias that feeds a train-mode BatchNorm
+        if zero_in_exact_arithmetic(name):
+            continue
         nr = ref.norm().item()
         grad_err[name] = (gg[name] - ref).norm().item() / nr if nr > 0 else gg[name].norm().item()
     worst = sorted(grad_err.items(), key=lambda kv: -kv[1])[:4]
-    print(f"fp32 {label} train step (res18, 32 px), card vs CPU on 8 images: worst loss term rel err "
+    print(f"fp32 {label} train step ({small_cfg.pretrain}, {small_cfg.image_size} px), card vs CPU on "
+          f"{small_batch['imgs'].shape[0]} images: worst loss term rel err "
           f"{max(term_err.items(), key=lambda kv: kv[1])}, worst gradient rel L2 {worst}")
     check(max(term_err.values()) <= 1e-4, "loss terms within 1e-4 of the CPU plain path")
     check(max(grad_err.values()) <= 1e-3, "gradients within 1e-3 relative L2 of the CPU plain path")
 
     torch.cuda.reset_peak_memory_stats()
-    print(f"{label} train step: " + json.dumps(time_steps(lambda: step(state, batch, sched), images)))
+    numbers = time_steps(lambda: step(state, batch, sched), images)
+    numbers["device_busy_ms"], numbers["launches_per_step"] = device_profile(lambda: step(state, batch, sched))
+    numbers["tf32"] = {"cudnn": torch.backends.cudnn.allow_tf32, "matmul": torch.backends.cuda.matmul.allow_tf32}
+    print(f"{label} train step: " + json.dumps(numbers))
     if profile:
-        profile_steps(lambda b: step(state, b, sched), batch)
+        busy = profile_steps(lambda b: step(state, b, sched), batch)
+        if cfg.pretrain == "effb3":
+            encoder_share(model, batch, busy, train=True, what=f"the {label} train step")
+        if loss_computer.vgg is not None:
+            vgg_share(loss_computer, batch, busy, f"the {label} train step")
 
     # a step after the timed ones, whose hand the updates have grown
     with captured_kernel_inputs() as later:
         state, _ = step(state, batch, sched)
     kernels_on(later, f"step {int(state.step)}")
+    print(f"phase {label} train: {time.perf_counter() - t0:.1f} s")
     return launches, hand
+
+
+def device_profile(fn, reps: int = 2) -> tuple:
+    """(device ms, device launches) per call of `fn`: the sums of every
+    kernel's, memset's and copy's device time and count (torch.profiler)
+    over `reps` calls after one warm-up, over reps. The profiler can miss a
+    launch, so the count reads low if anything; K1's and K4's launches are
+    counted in C instead."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sum(e.self_device_time_total for e in rows) / reps / 1e3, sum(e.count for e in rows) / reps
+
+
+def encoder_share(model, batch: dict, busy_ms: float, train: bool, what: str) -> None:
+    """The EfficientNet encoder alone on the step's images (forward, and the
+    backward of its outputs' mean when `train`), in the port's channels-last
+    layout and in plain NCHW: device ms (torch.profiler) and CUDA-events ms,
+    and the channels-last device ms as a share of the step's device busy
+    time."""
+    import copy
+
+    from hifihr_tpu_torch.networks.resnet import normalize_imagenet
+
+    imgs = batch["imgs"]
+    times = {}
+    for layout, fmt in (("channels_last", torch.channels_last), ("nchw", torch.contiguous_format)):
+        enc = copy.deepcopy(model.encoder).to(memory_format=fmt).train(train)
+
+        def run():
+            with torch.set_grad_enabled(train), model._encoder_autocast(imgs.device):
+                x = normalize_imagenet(imgs).permute(0, 3, 1, 2).contiguous(memory_format=fmt)
+                low, feat = enc.backbone(x)
+            if train:
+                (low.float().mean() + feat.float().mean()).backward()
+
+        times[layout] = {"device_ms": device_profile(run)[0], "events_ms": time_ms(run, reps=5)}
+        del enc
+    share = times["channels_last"]["device_ms"] / busy_ms
+    print(f"effb3 encoder on {what}'s {imgs.shape[0]} images ({'forward + backward' if train else 'forward'}): "
+          f"{json.dumps(times)}; channels_last is {share:.3f} of the step's {busy_ms:.3f} ms of device time")
+
+
+def vgg_share(loss_computer, batch: dict, busy_ms: float, what: str) -> None:
+    """The perceptual loss alone (the frozen VGG19 features of the composite
+    and of the image, the backward to the composite) on the step's images:
+    device ms (torch.profiler) and CUDA-events ms, and its share of the
+    step's device busy time."""
+    from hifihr_tpu_torch.losses.perceptual import perceptual_loss
+
+    imgs = batch["imgs"]
+    composite = (imgs * 0.5).requires_grad_()
+
+    def run():
+        perceptual_loss(loss_computer.vgg, composite, imgs).backward()
+
+    dev = device_profile(run)[0]
+    print(f"perceptual loss (VGG19 to relu3_2, fp32, cuDNN TF32 {torch.backends.cudnn.allow_tf32}) on {what}'s "
+          f"{imgs.shape[0]} images, forward + backward: {dev:.3f} ms of device time "
+          f"({time_ms(run, reps=5):.3f} ms by events), {dev / busy_ms:.3f} of the step's {busy_ms:.3f} ms")
 
 
 def stage_times(model, batch) -> None:
@@ -1254,7 +1394,10 @@ def stage_times(model, batch) -> None:
             print(f"stage {name}: {time_ms(fn, reps=5):.4f} ms")
 
 
-def profile_steps(step, batch, n: int = 3) -> None:
+def profile_steps(step, batch, n: int = 3) -> float:
+    """A torch.profiler pass over n steps: wall and device busy ms per step,
+    launches, and the kernels ranked by device time. Returns the device busy
+    ms per step."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1274,18 +1417,20 @@ def profile_steps(step, batch, n: int = 3) -> None:
     for i, e in enumerate(ranked):
         if i < 25 or any(k in e.key for k in ours):
             print(f"  {e.self_device_time_total / n / 1e3:9.4f} ms/step  x{e.count // n:<4d} {e.key[:110]}")
+    return dev_total / n / 1e3
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also profile a few eval and train steps of each render mode")
+                    help="also profile a few eval and train steps of each cell")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs an NVIDIA GPU", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from hifihr_tpu_torch import kernels
+    from hifihr_tpu_torch.config import Config
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60)
@@ -1301,33 +1446,66 @@ def main() -> int:
 
     set_fp32_numerics()
     batch = flagship_batch("cuda")
+    t0 = time.perf_counter()
     table = phase_kernels(batch) + [phase_k4(batch)]
-    eval_launches = phase_eval_step(batch, args.profile)
-    train_launches, train_hand = phase_train_step(batch, args.profile)
+    print(f"phase kernels K1-K4: {time.perf_counter() - t0:.1f} s")
+    small = slice_batch()
+    launches, hands = {}, {}
+
+    def cell(key: str, label: str, cfg, eval_batch: dict, train_batch: dict, eval_check: tuple,
+             train_check: tuple, fired: tuple = FIRED) -> None:
+        """The eval and train steps of one cell; their launches under
+        `{key}eval_step` and `{key}train_step`."""
+        launches[f"{key}eval_step"] = phase_eval_step(eval_batch, args.profile, cfg, label, *eval_check)
+        launches[f"{key}train_step"], hands[key] = phase_train_step(train_batch, args.profile, cfg, label, fired,
+                                                                    *train_check)
+
+    def full_size_check(cfg) -> tuple:  # the eval step in fp32 on 2 images at 224^2
+        return (dataclasses.replace(cfg, compute_dtype="float32"), {k: v[:2].cpu() for k, v in batch.items()},
+                f"{cfg.pretrain}, {S} px, 2 images")
+
+    def small_check(**over) -> tuple:  # the slice tests' configuration
+        cfg = Config(**dict(SLICE_CFG, **over))
+        return cfg, slice_batch(size=cfg.image_size), f"{cfg.pretrain}, {cfg.image_size} px, 8 images"
+
+    flagship = step_config()
+    cell("", "mano msaa", flagship, batch, batch, full_size_check(flagship), small_check()[:2])
     ssaa_batch = {k: v[:SSAA_B] for k, v in batch.items()}
-    ssaa_eval_launches = phase_eval_step(ssaa_batch, args.profile, aa_mode="ssaa")
-    ssaa_train_launches, ssaa_train_hand = phase_train_step(ssaa_batch, args.profile, aa_mode="ssaa")
+    ssaa_small = small_check(aa_mode="ssaa")
+    cell("ssaa_", "mano ssaa", step_config("ssaa"), ssaa_batch, ssaa_batch, ssaa_small, ssaa_small[:2])
+    t0 = time.perf_counter()
     nimble = phase_nimble_kernels(batch)
-    nimble_eval_launches = phase_eval_step(batch, args.profile, hand_model="nimble")
-    nimble_train_launches, nimble_train_hand = phase_train_step(batch, args.profile, hand_model="nimble")
-    table[0]["train_hand"] = train_hand["K1"] + ssaa_train_hand["K1"]
-    table[2]["train_hand"] = train_hand["K3"] + ssaa_train_hand["K3"]
-    table[3]["train_hand"] = ssaa_train_hand["K4"]
-    nimble["K1"]["train_hand"] = nimble_train_hand["K1"]
-    nimble["K3"]["train_hand"] = nimble_train_hand["K3"]
-    k2_checked = train_hand["K2"] + ssaa_train_hand["K2"] + nimble_train_hand["K2"]
+    print(f"phase NIMBLE kernels: {time.perf_counter() - t0:.1f} s")
+    nimble_small = small_check(hand_model="nimble")
+    cell("nimble_", "nimble msaa", step_config(hand_model="nimble"), batch, batch, nimble_small, nimble_small[:2])
+    # bench's effb3 cell (bench.py:274-275); its train step held at 64 px
+    effb3 = step_config(pretrain="effb3")
+    cell("effb3_", "effb3 msaa", effb3, batch, batch, full_size_check(effb3),
+         small_check(pretrain="effb3", image_size=64)[:2])
+    # the paper's config from its JSON, at its own val and train batches
+    paper = Config.from_json(PAPER_CONFIG)
+    paper_small = (Config.from_json(PAPER_CONFIG, **PAPER_SMALL), {k: v for k, v in small.items() if k in PAPER_KEYS})
+    cell("paper_", "paper (nimble effb3) msaa", paper, paper_batch(batch, paper.val_batch),
+         paper_batch(batch, paper.train_batch), paper_small + ("the paper config, 32 px, 8 images",), paper_small,
+         fired=paper.losses)
+
+    table[0]["train_hand"] = hands[""]["K1"] + hands["ssaa_"]["K1"] + hands["effb3_"]["K1"]
+    table[2]["train_hand"] = hands[""]["K3"] + hands["ssaa_"]["K3"] + hands["effb3_"]["K3"]
+    table[3]["train_hand"] = hands["ssaa_"]["K4"]
+    nimble["K1"]["train_hand"] = hands["nimble_"]["K1"] + hands["paper_"]["K1"]
+    nimble["K3"]["train_hand"] = hands["nimble_"]["K3"] + hands["paper_"]["K3"]
+    k2_checked = sum(h["K2"] for h in hands.values())
     print(f"K2: {k2_checked} captured launches of the train steps bit-equal to the plain version")
     for k, reading in zip(table, (nimble["K1"], nimble["K2"], nimble["K3"], None)):
         name = k["name"]
-        if name.startswith("K4"):
-            k["launches"], k["launches_train_step"] = ssaa_eval_launches[name], ssaa_train_launches[name]
-        else:
-            k["launches"] = (train_launches if name.startswith("K3") else eval_launches)[name]
-            k["launches_train_step"] = train_launches[name]
-        k["launches_ssaa_eval_step"] = ssaa_eval_launches[name]
-        k["launches_ssaa_train_step"] = ssaa_train_launches[name]
-        k["launches_nimble_eval_step"] = nimble_eval_launches[name]
-        k["launches_nimble_train_step"] = nimble_train_launches[name]
+        # `launches`: the path's own step (K1 and K2 the eval step, K3 the
+        # train step, K4 the SSAA eval step); every cell's under its key
+        k["launches"] = launches["ssaa_eval_step" if name.startswith("K4") else
+                                 "train_step" if name.startswith("K3") else "eval_step"][name]
+        k["launches_train_step"] = launches["ssaa_train_step" if name.startswith("K4") else "train_step"][name]
+        for cell_step, counts in launches.items():
+            if cell_step not in ("eval_step", "train_step"):
+                k[f"launches_{cell_step}"] = counts[name]
         if reading is not None:
             k["nimble"] = reading
     print(json.dumps({"kernels": table}))

@@ -39,3 +39,11 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError("hifihr_tpu_torch: CUDA requested but torch.cuda.is_available() "
                            "is False; pass device='cpu' to run the plain versions")
     return dev
+
+
+def variance_scaling_(w: torch.Tensor, scale: float, fan: int, gen: torch.Generator) -> torch.Tensor:
+    """flax's variance_scaling(scale, mode, "truncated_normal") in place: a
+    normal cut at 2 std, scaled to variance scale / fan (the caller picks
+    fan_in or fan_out)."""
+    torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return w.mul_((scale / fan) ** 0.5 / 0.87962566103423978)

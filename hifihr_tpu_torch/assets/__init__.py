@@ -1,5 +1,6 @@
-"""Hand model assets: MANO (a copy of hifihr_tpu/assets/mano_right.npz) and
-NIMBLE (a copy of hifihr_tpu/assets/nimble_placeholder.npz)."""
+"""Assets: MANO (a copy of hifihr_tpu/assets/mano_right.npz), NIMBLE (a copy
+of hifihr_tpu/assets/nimble_placeholder.npz) and the path of the perceptual
+loss's VGG19 features."""
 
 from __future__ import annotations
 
@@ -65,3 +66,9 @@ class NimbleModel(NamedTuple):
 def load_nimble_model(path: str | None = None) -> NimbleModel:
     with np.load(path or DEFAULT_NIMBLE_NPZ) as z:
         return NimbleModel(**{k: z[k] for k in NimbleModel._fields if k in z.files})
+
+# the perceptual loss's VGG19 features through relu3_2, in the JAX package's
+# npz layout (conv{i}_kernel HWIO, conv{i}_bias; tools/convert_torch_weights.py
+# vgg). When absent, the loss runs on seeded random features
+# (hifihr_tpu_torch.losses.perceptual.load_or_init_vgg)
+VGG_NPZ = os.path.join(_ASSET_DIR, "vgg19_features.npz")

@@ -1,30 +1,56 @@
-"""The port's configuration: the fields of hifihr_tpu/config.py::Config that
-the ported slices read, with the same names and defaults, so one dict builds
-both."""
+"""The port's configuration: every field of hifihr_tpu/config.py::Config, with
+the same names and defaults, and its JSON loader, so one shipped config file
+builds both packages.
+
+A value the port cannot run as the JAX package does raises
+NotImplementedError naming the feature; an unknown value raises ValueError,
+as in the JAX package. Fields marked "carried" are kept for the JSON schema
+and read by nothing in the port yet (the training loop, the data layer and
+checkpoints are not ported).
+"""
 
 from __future__ import annotations
 
+import dataclasses
+import json
+import warnings
 from dataclasses import dataclass
 
-ENCODERS = ("res18", "res50", "res101")
-HAND_MODELS = ("mano", "nimble")
+ENCODERS = ("res18", "res50", "res101", "hr18sv2", "effb3", "none")
+PORTED_ENCODERS = ("res18", "res50", "res101", "effb3")
+HAND_MODELS = ("mano", "nimble", "mano_new")
+PORTED_HAND_MODELS = ("mano", "nimble")
+DATASETS = ("FreiHand", "RHD", "HO3D", "Dart")
 AA_MODES = ("msaa", "ssaa")
 BASE_LOSS_FNS = ("L1", "L2")
 OPTIMIZERS = ("Adam", "AdamW")
-# the branches of losses/stack.py that the port has; the photometric triples
-# fire on presence (texture_con, segms_gt), not by name
-PORTED_LOSSES = ("joint_2d", "joint_3d", "vert_3d", "bone_direc", "edge_length", "mscale", "sil",
-                 "iou", "mshape", "mpose", "mtex")
+# the names of losses/stack.py's branches that the port has. texture, mrgb,
+# ssim_tex and their _self forms are accepted and fire on presence
+# (segms_gt, texture_con in the batch), not by name, as in the JAX package
+PORTED_LOSSES = ("joint_2d", "joint_3d", "vert_3d", "bone_direc", "bone_direc_3d", "edge_length", "mscale",
+                 "scale", "open_2dj", "open_bone_direc", "tsa_poses", "tsa_pose", "perceptual", "sil", "iou",
+                 "triangle", "mshape", "mpose", "mtex",
+                 "texture", "mrgb", "ssim_tex", "texture_self", "mrgb_self", "ssim_tex_self")
 STEPPED_LAMBDAS = ("j2d_gt", "shape", "pose", "tex_reg")
+
+# JSON keys the JAX package drops on purpose (hifihr_tpu/config.py:41-45,
+# where each is explained); any other unknown key warns
+_KNOWN_IGNORED_KEYS = frozenset({
+    "train_requires", "test_requires", "writer_topic",
+    "demo_freq_evaluation", "mode_0", "lambda_pose", "lambda_j2d_gt",
+    "pretrain_segmnet", "new_model", "task", "val_interval",
+})
 
 
 @dataclass(frozen=True)
 class Config:
+    # model
     pretrain: str = "res50"
     hand_model: str = "mano"
     use_mean_shape: bool = False
     render: bool = True
     light_estimation: bool = True
+    four_channel: bool = False
     image_size: int = 224
     aa_factor: int = 3
     # 'msaa': the rasteriser tests aa_factor x aa_factor subsamples per pixel
@@ -34,25 +60,53 @@ class Config:
     # NIMBLE's MSAA render samples its appearance at the face corners
     # (False, per-fragment UV sampling, is not ported)
     nimble_corner_tex: bool = True
+    rgb2hm: bool = False
+    freeze_hm_estimator: bool = False
+    fsdp: int = 1
     # encoder compute dtype; parameters stay float32
     compute_dtype: str = "bfloat16"
-    rgb2hm: bool = False
+
+    # data (carried)
+    train_datasets: tuple = ("FreiHand",)
+    val_datasets: tuple = ("FreiHand",)
+    train_queries: tuple = ("trans_images", "trans_Ks", "trans_joints")
+    val_queries: tuple = ("images", "Ks", "joints")
+    train_queries_frei: tuple = ()
+    train_queries_rhd: tuple = ()
+    train_queries_ho3d: tuple = ()
+    train_queries_dart: tuple = ()
+    freihand_base_path: str | None = None
+    rhd_base_path: str | None = None
+    ho3d_base_path: str | None = None
+    dart_base_path: str | None = None
+    controlled_exp: bool = False
+    controlled_size: int = 3000
+    semi_ratio: float | None = None
 
     # losses (losses_frei/_rhd override `losses` per dataset)
     losses: tuple = ("mscale",)
     losses_frei: tuple = ()
     losses_rhd: tuple = ()
     base_loss_fn: str = "L2"
+    lambda_laplacian: float = 0.1
     lambda_texture: float = 0.003
     lambda_silhouette: float = 0.005
+    lambda_j2d: float = 1e-3
+    lambda_j2d_de: float = 1e-4  # carried: open_2dj_de is not ported
     lambda_j3d: float = 100.0
+    lambda_j3d_norm: float = 100.0  # carried: joint_3d_norm is not ported
     lambda_vert_3d: float = 100.0
     lambda_mrgb: float = 1e-3
     lambda_iou: float = 1e-3
     lambda_bone_direc: float = 0.1
-    lambda_ssim_tex: float = 0.001
-    lambda_mscale: float = 0.1
+    lambda_bone_direc_3d: float = 0.1
     lambda_edge_len: float = 0.1
+    lambda_percep: float = 1e-5
+    lambda_hm: float = 1e-3  # carried: hm_integral(_gt) is not ported
+    lambda_kp_cons: float = 2e-4  # carried: kp_cons is not ported
+    lambda_ssim_tex: float = 0.001
+    lambda_scale: float = 100.0
+    lambda_mscale: float = 0.1
     # stepped schedules: value_list[i] applies from epoch steps[i-1]
     lambda_j2d_gt_list: tuple = (1e-5,)
     lambda_j2d_gt_steps: tuple = ()
@@ -69,21 +123,67 @@ class Config:
     force_init_lr: float = -1.0
     lr_steps: tuple = (50,)
     lr_gamma: float = 0.001
+    total_epochs: int = 100  # carried
+    train_batch: int = 8  # carried; chip_smoke.py runs the paper config at it
+    val_batch: int = 8  # carried; chip_smoke.py runs the paper config at it
+    num_workers: int = 8  # carried
+    decode_cache: str = ""  # carried
+    save_interval: int = 1  # carried
+    save_mode: str = "separately"  # carried
     only_train_regressor: bool = False
     only_train_texture: bool = False
 
+    # checkpointing / resume (carried)
+    pretrain_model: str | None = None
+    pretrain_texture_model: str | None = None
+    pretrain_rgb2hm: str | None = None
+    # a converted imagenet encoder to start from; the port has no loader yet
+    encoder_imagenet_npz: str | None = None
+
+    seed: int = 0  # carried: build_model takes its seed as an argument
+
+    # logging (carried)
+    base_out_path: str = "output/debug"
+    demo_freq: int = 100
+    print_freq: int = 100
+    is_write_tb: bool = False
+
+    # the reference's passthroughs (carried)
+    mode: tuple = ("training",)
+    is_val: bool = False
+    if_test: bool = True
+    test_refinement: bool = False
+    save_2d: bool = False
+    save_3d: bool = False
+    img_wise_save: bool = False
+
     def __post_init__(self):
         if self.pretrain not in ENCODERS:
-            raise ValueError(f"pretrain={self.pretrain!r}: the port has {ENCODERS}")
+            raise ValueError(f"unknown encoder pretrain={self.pretrain!r}; valid: {ENCODERS}")
+        if self.pretrain not in PORTED_ENCODERS:
+            raise NotImplementedError(f"pretrain={self.pretrain!r}: the port has {PORTED_ENCODERS}")
         if self.hand_model not in HAND_MODELS:
-            raise NotImplementedError(f"hand_model={self.hand_model!r}: the port has {HAND_MODELS}")
+            raise ValueError(f"unknown hand_model={self.hand_model!r}; valid: {HAND_MODELS}")
+        if self.hand_model not in PORTED_HAND_MODELS:
+            raise NotImplementedError(f"hand_model={self.hand_model!r}: the port has {PORTED_HAND_MODELS}")
+        for d in tuple(self.train_datasets) + tuple(self.val_datasets):
+            if d not in DATASETS:
+                raise ValueError(f"unknown dataset {d!r}; valid: {DATASETS}")
         if self.aa_mode not in AA_MODES:
             raise NotImplementedError(f"aa_mode={self.aa_mode!r}: the port has {AA_MODES}")
         if self.hand_model == "nimble" and self.render and (self.aa_mode != "msaa" or not self.nimble_corner_tex):
             raise NotImplementedError("NIMBLE renders in the port with aa_mode='msaa' and nimble_corner_tex=True "
                                       "only; the per-fragment UV path is not ported")
-        if self.rgb2hm:
-            raise NotImplementedError("rgb2hm: the heatmap branch is not ported")
+        unported = {
+            "four_channel": self.four_channel,  # the heatmap channel of the input
+            "rgb2hm": self.rgb2hm,  # the hourglass heatmap branch
+            "freeze_hm_estimator": self.freeze_hm_estimator,
+            "fsdp": self.fsdp != 1,  # the DP x FSDP mesh
+            "encoder_imagenet_npz": self.encoder_imagenet_npz is not None,  # the imagenet warm start
+        }
+        for name, on in unported.items():
+            if on:
+                raise NotImplementedError(f"{name}={getattr(self, name)!r}: not ported")
         if self.compute_dtype not in ("bfloat16", "float32"):
             raise ValueError(f"compute_dtype={self.compute_dtype!r}")
         unported = sorted(set(self.losses + self.losses_frei + self.losses_rhd) - set(PORTED_LOSSES))
@@ -109,3 +209,32 @@ class Config:
         if self.hand_model == "nimble":
             return (20, 30, 10)
         return (10, 48, None)
+
+    @staticmethod
+    def from_json(path: str, **overrides) -> "Config":
+        """A shipped JSON config (configs/**/*.json), with `overrides`
+        replacing its keys."""
+        with open(path) as f:
+            raw = json.load(f)
+        raw.update(overrides)
+        return Config.from_dict(raw)
+
+    @staticmethod
+    def from_dict(raw: dict) -> "Config":
+        """Lists become tuples; the keys in _KNOWN_IGNORED_KEYS are dropped,
+        and any other key that is not a field is dropped with a warning."""
+        fields = {f.name for f in dataclasses.fields(Config)}
+        kwargs = {}
+        dropped = []
+        for k, v in raw.items():
+            if k not in fields:
+                if k not in _KNOWN_IGNORED_KEYS:
+                    dropped.append(k)
+                continue
+            kwargs[k] = tuple(v) if isinstance(v, list) else v
+        if dropped:
+            warnings.warn(f"config keys not modelled by Config (ignored): {sorted(dropped)}", stacklevel=2)
+        return Config(**kwargs)
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)

@@ -7,14 +7,18 @@ state dict of hifihr_tpu_torch.models.HiFiHR with the same configuration:
   conv kernel HWIO -> weight OIHW; Dense kernel (in, out) -> weight (out, in)
   BatchNorm scale/bias/mean/var -> weight/bias/running_mean/running_var
   MMPool p and vert_tex as they are
-  the ResNet stem: the flax kernel is stored in space-to-depth form
-  (hifihr_tpu/networks/resnet.py::StemConvS2D, (4, 4, 12, 64)); it is laid
-  out again as the 8x8 / stride-2 kernel (64, 3, 8, 8) of
-  hifihr_tpu_torch.networks.resnet.StemConv, which holds every s2d tap, so
-  fresh and trained kernels both convert exactly.
+  a depthwise kernel (k, k, 1, C) -> weight (C, 1, k, k), by the same rule
+  the stems (ResNet's and EfficientNet's): the flax kernel is stored in
+  space-to-depth form (hifihr_tpu/networks/resnet.py::StemConvS2D,
+  (M, M, 12, O): (4, 4, 12, 64) for ResNet, (2, 2, 12, 40) for
+  EfficientNet-b3); it is laid out again as the 2M x 2M / stride-2 kernel
+  (O, 3, 2M, 2M) of hifihr_tpu_torch.networks.resnet.StemConv, which holds
+  every s2d tap, so fresh and trained kernels both convert exactly.
 
 The LightEstimator flattens in NHWC order in both packages, so its fc0 rows
-need no permutation.
+need no permutation. The same function converts the perceptual loss's
+VGG19 features ({"params": {"conv0": ..., ..., "conv5": ...}}) into the
+state dict of hifihr_tpu_torch.losses.perceptual.VGG19Features.
 """
 
 from __future__ import annotations
@@ -22,7 +26,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-_STEM = "encoder.backbone.conv1"
+_STEMS = ("backbone.conv1", "backbone.conv_stem")  # an encoder's, alone or in the model
 
 
 def stem_kernel_from_s2d(w2: np.ndarray) -> np.ndarray:
@@ -49,7 +53,7 @@ def state_dict_from_flax(variables: dict) -> dict[str, torch.Tensor]:
     for path, a in _leaves(variables["params"]):
         module, _, leaf = path.rpartition(".")
         if leaf == "kernel":
-            if module == _STEM:
+            if module.endswith(_STEMS):
                 a = stem_kernel_from_s2d(a)
             a = a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T
             sd[f"{module}.weight"] = torch.tensor(np.ascontiguousarray(a))

@@ -17,14 +17,15 @@ import contextlib
 import torch
 from torch import nn
 
-from hifihr_tpu_torch import constant
+from hifihr_tpu_torch import constant, variance_scaling_
 from hifihr_tpu_torch.config import Config
 from hifihr_tpu_torch.geometry.joints import MANO_TO_FREI, remap
 from hifihr_tpu_torch.geometry.projection import orthographic_project, perspective_project
 from hifihr_tpu_torch.hand.mano import ManoLayer, regress_joints_frei
 from hifihr_tpu_torch.hand.nimble import NimbleLayer
+from hifihr_tpu_torch.networks.efficientnet import EffNetEncoder
 from hifihr_tpu_torch.networks.heads import HandEncoder, LightEstimator
-from hifihr_tpu_torch.networks.resnet import ResNetEncoder
+from hifihr_tpu_torch.networks.resnet import ResNetEncoder, StemConv
 from hifihr_tpu_torch.render.renderer import PhongRenderer, RenderSettings
 from hifihr_tpu_torch.render.shading import DirectionalLight
 
@@ -34,14 +35,15 @@ ROOT_ID_NIMBLE = 11  # NIMBLE's 25-joint root
 
 class HiFiHR(nn.Module):
     """Parameter names follow the flax tree (`encoder.backbone.layer1_0...`,
-    `hand_encoder.base_fc0`, `light_estimator.conv1`, `vert_tex` for MANO),
+    `encoder.backbone.block3.se_reduce`, `hand_encoder.base_fc0`,
+    `light_estimator.conv1`, `vert_tex` for MANO),
     so `hifihr_tpu_torch.convert.state_dict_from_flax` maps them one to
     one."""
 
     def __init__(self, config: Config):
         super().__init__()
         self.config = config
-        self.encoder = ResNetEncoder(config.pretrain)
+        self.encoder = EffNetEncoder() if config.pretrain == "effb3" else ResNetEncoder(config.pretrain)
         backbone = self.encoder.backbone
         shape_nc, pose_nc, tex_nc = config.ncomps
         self.hand_encoder = HandEncoder(backbone.out_channels, shape_nc, pose_nc,
@@ -152,20 +154,31 @@ HEAD_OUT_SCALE = 1e-3
 
 
 def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
-    """Seeded random initialisation from a torch.Generator: He-normal
-    (fan_out) convs, He-normal (fan_in) dense layers, zero biases, unit
+    """Seeded random initialisation from a torch.Generator: zero biases, unit
     BatchNorm scales with running stats (0, 1), zero MMPool mix and vertex
-    albedo, as the flax initialisers do; the hand heads' output layers are
-    scaled by HEAD_OUT_SCALE, so random weights predict a hand near MANO's
-    mean pose and shape."""
+    albedo, as the flax initialisers do; He-normal (fan_in) dense layers;
+    the EfficientNet encoder's convs as flax initialises them (its stem
+    variance_scaling(2, fan_out, truncated) over the s2d kernel's
+    (M, M, 4C, O) shape, every other conv lecun_normal, truncated, with
+    fan_in = (C_in / groups) k^2); the other convs He-normal (fan_out), the
+    init the port's ResNet cells are measured with. The hand heads' output
+    layers are scaled by HEAD_OUT_SCALE, so random weights predict a hand
+    near MANO's mean pose and shape."""
     gen = torch.Generator(device="cpu").manual_seed(seed)
+    effnet = isinstance(getattr(model, "encoder", None), EffNetEncoder)
     with torch.no_grad():
         for name, m in model.named_modules():
             if isinstance(m, (nn.Conv2d, nn.Linear)):
                 w = m.weight
-                fan = w.shape[0] * w[0, 0].numel() if isinstance(m, nn.Conv2d) else w.shape[1]
-                scale = HEAD_OUT_SCALE if name.startswith("hand_encoder.") and name.endswith("_out") else 1.0
-                w.copy_(torch.randn(w.shape, generator=gen) * (2.0 / fan) ** 0.5 * scale)
+                if effnet and name.startswith("encoder."):
+                    if isinstance(m, StemConv):
+                        variance_scaling_(w, 2.0, m.taps ** 2 * w.shape[0], gen)
+                    else:
+                        variance_scaling_(w, 1.0, w[0].numel(), gen)
+                else:
+                    fan = w.shape[0] * w[0, 0].numel() if isinstance(m, nn.Conv2d) else w.shape[1]
+                    scale = HEAD_OUT_SCALE if name.startswith("hand_encoder.") and name.endswith("_out") else 1.0
+                    w.copy_(torch.randn(w.shape, generator=gen) * (2.0 / fan) ** 0.5 * scale)
                 if m.bias is not None:
                     m.bias.zero_()
             elif isinstance(m, nn.modules.batchnorm._BatchNorm):

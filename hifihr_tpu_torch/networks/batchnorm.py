@@ -1,13 +1,14 @@
-"""BatchNorm with the semantics of flax.linen.BatchNorm(momentum=0.9), which
-the JAX package's ResNet and hand heads use.
+"""BatchNorm with the semantics of flax.linen.BatchNorm: momentum 0.9 and eps
+1e-5 for the JAX package's ResNet and hand heads (the defaults here), 0.99
+and 1e-3 for its EfficientNet.
 
 Eval mode normalises with the running statistics, as torch's BatchNorm does.
 Train mode normalises with the batch statistics, reduced in fp32 whatever the
 input's dtype (bf16 under autocast), and then updates the running statistics
 as flax does:
 
-  running_mean = 0.9 * running_mean + 0.1 * batch_mean
-  running_var  = 0.9 * running_var  + 0.1 * batch_var   (the BIASED variance)
+  running_mean = m * running_mean + (1 - m) * batch_mean
+  running_var  = m * running_var  + (1 - m) * batch_var   (the BIASED variance)
 
 torch's own BatchNorm stores the unbiased variance, which differs by
 B / (B - 1) per update (2x at batch 2). The batch statistics come from
@@ -35,16 +36,18 @@ class _FlaxStats:
                                                     True, 0.0, self.eps)
         with torch.no_grad():
             var = invstd.reciprocal().square_().sub_(self.eps)
-            self.running_mean.mul_(MOMENTUM).add_(mean, alpha=1.0 - MOMENTUM)
-            self.running_var.mul_(MOMENTUM).add_(var, alpha=1.0 - MOMENTUM)
+            self.running_mean.mul_(self.decay).add_(mean, alpha=1.0 - self.decay)
+            self.running_var.mul_(self.decay).add_(var, alpha=1.0 - self.decay)
         return out
 
 
 class BatchNorm1d(_FlaxStats, nn.BatchNorm1d):
-    def __init__(self, num_features: int):
-        super().__init__(num_features, eps=EPS)
+    def __init__(self, num_features: int, momentum: float = MOMENTUM, eps: float = EPS):
+        super().__init__(num_features, eps=eps)
+        self.decay = momentum  # flax's meaning; torch's `momentum` is 1 - decay and unused here
 
 
 class BatchNorm2d(_FlaxStats, nn.BatchNorm2d):
-    def __init__(self, num_features: int):
-        super().__init__(num_features, eps=EPS)
+    def __init__(self, num_features: int, momentum: float = MOMENTUM, eps: float = EPS):
+        super().__init__(num_features, eps=eps)
+        self.decay = momentum

@@ -84,12 +84,13 @@ class HandEncoder(nn.Module):
 
 
 class LightEstimator(nn.Module):
-    """low features (B, C, 28, 28) -> {'colors': (B, 3) in [-1, 1],
-    'directions': (B, 3)}."""
+    """low features (B, C, 28, 28), or EfficientNet-b3's (B, 32, 56, 56),
+    -> {'colors': (B, 3) in [-1, 1], 'directions': (B, 3)}."""
 
     def __init__(self, cin: int):
         super().__init__()
-        self.conv1 = nn.Conv2d(cin, 48, 1, 2)
+        # the JAX module strides EfficientNet-b3's 32-channel 56x56 map by 4
+        self.conv1 = nn.Conv2d(cin, 48, 1, 4 if cin == 32 else 2)
         self.conv2 = nn.Conv2d(48, 48, 3)  # VALID
         self.conv3 = nn.Conv2d(48, 64, 3, 2)  # VALID
         self.fc0 = nn.Linear(256, 64)

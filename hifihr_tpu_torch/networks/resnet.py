@@ -35,27 +35,42 @@ def _conv(cin, cout, k, stride=1, pad=0):
     return nn.Conv2d(cin, cout, k, stride, pad, bias=False)
 
 
+def s2d_geometry(kernel_size: int, pad_lo: int) -> tuple:
+    """The JAX package's `_s2d_geometry`: a k x k / stride-2 conv with zero
+    padding pad_lo on the low side is an M x M stride-1 conv over the 2x2
+    space-to-depth input with padding (lo, hi). Returns (M, (lo, hi))."""
+    mlo = (-pad_lo) // 2
+    mhi = (kernel_size - pad_lo - 1) // 2
+    return mhi - mlo + 1, (-mlo, mhi)
+
+
 class StemConv(nn.Conv2d):
-    """8x8 / stride-2 conv with zero padding (4, 2): what the JAX package's
-    StemConvS2D computes (4x4 taps over 2x2 patches, s2d padding (2, 1)),
-    every one of its 64 taps per channel included. A torchvision 7x7 /
-    pad-3 kernel is this kernel's taps [1:, 1:].
+    """A stride-2 stem conv as the JAX package's StemConvS2D(kernel_size,
+    pad_lo) computes it: M x M taps over 2x2 patches with s2d padding
+    (lo, hi), which is a 2M x 2M / stride-2 conv with zero padding
+    (2 lo, 2 hi), every one of its taps per channel included. ResNet's
+    7x7 / pad-3 stem is an 8x8 kernel with padding (4, 2), whose taps
+    [1:, 1:] a torchvision kernel fills; EfficientNet's 3x3 "SAME" stem is a
+    4x4 kernel with padding (0, 2).
 
-    The weight is stored 8x8; forward computes the same sums in s2d form,
-    a stride-1 4x4 conv over 12 channels, which cuDNN runs faster than the
-    3-channel stride-2 8x8 conv (`chip_smoke.py --profile`, PERF.md)."""
+    The weight is stored 2M x 2M; forward computes the same sums in s2d
+    form, a stride-1 M x M conv over 4C channels, which cuDNN runs faster
+    than the 3-channel stride-2 conv for ResNet's stem
+    (`chip_smoke.py --profile`, PERF.md)."""
 
-    def __init__(self):
-        super().__init__(3, 64, 8, 2, 0, bias=False)
+    def __init__(self, cout: int = 64, kernel_size: int = 7, pad_lo: int = 3):
+        self.taps, self.s2d_pad = s2d_geometry(kernel_size, pad_lo)
+        super().__init__(3, cout, 2 * self.taps, 2, 0, bias=False)
 
     def forward(self, x):
         b, c, h, w = x.shape
         # (b, h, w, c) -> (b, h/2, w/2, (di, dj, c)), the order of StemConvS2D
         xs = x.permute(0, 2, 3, 1).reshape(b, h // 2, 2, w // 2, 2, c).transpose(2, 3)
         xs = xs.reshape(b, h // 2, w // 2, 4 * c).permute(0, 3, 1, 2)  # channels-last NCHW
-        o = self.weight.shape[0]
-        ws = self.weight.reshape(o, c, 4, 2, 4, 2).permute(0, 3, 5, 1, 2, 4).reshape(o, 4 * c, 4, 4)
-        return Fn.conv2d(Fn.pad(xs, (2, 1, 2, 1)), ws)
+        o, m = self.weight.shape[0], self.taps
+        ws = self.weight.reshape(o, c, m, 2, m, 2).permute(0, 3, 5, 1, 2, 4).reshape(o, 4 * c, m, m)
+        lo, hi = self.s2d_pad
+        return Fn.conv2d(Fn.pad(xs, (lo, hi, lo, hi)), ws)
 
 
 class BasicBlock(nn.Module):

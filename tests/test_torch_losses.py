@@ -3,7 +3,8 @@ against the JAX package's on the same numpy inputs, CPU, fp32.
 
 Tolerances: values and gradients at rtol 1e-5 (fp32 sums and reductions
 taken in another order; SSIM's 11x11 convolution sums 121 products per
-output); the Laplacian operator exactly equal (both are built in numpy).
+output; the perceptual loss runs six fp32 VGG convs, with JAX's random
+VGG19 params carried across by the converter); the Laplacian operator exactly equal (both are built in numpy).
 JAX takes the derivative of |x| at 0 as 1, torch as 0. In texture_self,
 |re_img - maskRGBs| is exactly 0 on background pixels (both are 0 there),
 so the gradient with respect to re_img is held where the two differ; on the
@@ -188,9 +189,116 @@ def test_loss_computer_matches_jax(cfg):
         np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5 * np.abs(ref).max(), err_msg=k)
 
 
+SEVEN = ("bone_direc_3d", "scale", "open_2dj", "open_bone_direc", "triangle", "tsa_poses", "perceptual")
+
+
+def _branch_inputs(B=2, S=32, seed=9):
+    """Seeded outputs and examples for the seven branches; no re_sil,
+    texture_con or segms_gt-driven triple fires, so each case holds its own
+    branch alone."""
+    rng = np.random.RandomState(seed)
+    outputs = {
+        "joints": (rng.randn(B, 21, 3) * 0.03).astype(np.float32),
+        "mano_verts": (rng.randn(B, 778, 3) * 0.03).astype(np.float32),
+        "j2d": (rng.rand(B, 21, 2) * S).astype(np.float32),
+        "tsa_poses": (rng.randn(B, 16, 3) * 0.6).astype(np.float32),
+        "re_img": rng.rand(B, S, S, 3).astype(np.float32),
+    }
+    examples = {
+        "imgs": rng.rand(B, S, S, 3).astype(np.float32),
+        "joints": (rng.randn(B, 21, 3) * 0.03).astype(np.float32),
+        "scales": rng.uniform(0.02, 0.04, B).astype(np.float32),
+        # pseudo-labels within 5 px of the prediction for some joints, so
+        # both sides of the Huber-like distance are held
+        "open_2dj": (outputs["j2d"] + rng.randn(B, 21, 2) * 6).astype(np.float32),
+        "open_2dj_con": rng.rand(B, 21, 1).astype(np.float32),
+        "segms_gt": (rng.rand(B, S, S) > 0.5).astype(np.float32),
+    }
+    return outputs, examples
+
+
+@pytest.mark.parametrize("name,dat_name", [(n, "FreiHand") for n in SEVEN] + [("scale", "RHD"), ("scale", "HO3D"),
+                                                                                ("tsa_pose", "FreiHand")])
+def test_seven_branches_match_jax(name, dat_name):
+    """Each of the seven branches alone (bone_direc_3d, scale, open_2dj,
+    open_bone_direc, triangle, tsa_poses, perceptual) against JAX's
+    LossComputer: the value and the gradient of the total with respect to
+    every model output it reads, at rtol 1e-5 (perceptual's six fp32 convs
+    with JAX's own random VGG19 params carried across by the converter).
+    scale fires for FreiHand and RHD and, under HO3D, neither side fires it
+    nor warns; tsa_pose is the singular spelling of tsa_poses."""
+    import warnings
+
+    from hifihr_tpu_torch.convert import state_dict_from_flax
+
+    outputs, examples = _branch_inputs()
+    cfg = dict(losses=(name,), lambda_scale=100.0, lambda_bone_direc_3d=6.0, lambda_percep=1e-2,
+               lambda_pose_list=(1e-2,))
+    jlc, tlc = JLossComputer(JConfig(**cfg)), LossComputer(Config(**cfg))
+    if name == "perceptual":
+        tlc.vgg.load_state_dict(state_dict_from_flax(jlc.vgg_params), strict=True)
+
+    def jtotal(diff):
+        d = jlc({k: jnp.asarray(v) for k, v in examples.items()},
+                {**{k: jnp.asarray(v) for k, v in outputs.items()}, **diff}, dat_name)
+        return d["total"], d
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")  # a fired branch warns on neither side
+        (_, jd), jg = jax.value_and_grad(jtotal, has_aux=True)({k: jnp.asarray(v) for k, v in outputs.items()})
+        tout = {k: _t(v, True) for k, v in outputs.items()}
+        td = tlc({k: _t(v) for k, v in examples.items()}, tout, dat_name)
+    fired = {"tsa_pose": "tsa_poses"}.get(name, name)
+    want = {"total"} if (name, dat_name) == ("scale", "HO3D") else {fired, "total"}
+    assert set(td) == set(jd) == want
+    for k in want:
+        np.testing.assert_allclose(td[k].item(), float(jd[k]), rtol=1e-5, err_msg=k)
+    if want == {"total"}:
+        return
+    assert td[fired].item() > 0
+    td["total"].backward()
+    read = [k for k in outputs if tout[k].grad is not None and tout[k].grad.abs().max() > 0]
+    assert read, name
+    for k in outputs:
+        ref = np.asarray(jg[k])
+        got = tout[k].grad.numpy() if tout[k].grad is not None else np.zeros_like(ref)
+        np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5 * max(np.abs(ref).max(), 1e-30), err_msg=k)
+
+
+def test_unfired_loss_warns_as_jax_does(monkeypatch):
+    """A listed loss whose batch key or model output is missing does not
+    fire and warns once with the JAX package's message (open_2dj without
+    pseudo-labels, tsa_poses without the MANO output, perceptual listed only
+    under losses_frei, so no VGG is built)."""
+    import warnings
+
+    import hifihr_tpu.losses.stack as jstack
+
+    monkeypatch.setattr(jstack, "_WARNED_UNFIRED", set())
+    outputs, examples = _branch_inputs()
+    del outputs["tsa_poses"], examples["open_2dj"]
+    cfg = dict(losses=("mscale",), losses_frei=("joint_3d", "open_2dj", "tsa_poses", "perceptual"))
+    msgs = []
+    for lc, wrap in ((JLossComputer(JConfig(**cfg)), jnp.asarray), (LossComputer(Config(**cfg)), _t)):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            for _ in range(2):  # warned once
+                d = lc({k: wrap(v) for k, v in examples.items()}, {k: wrap(v) for k, v in outputs.items()},
+                       "FreiHand")
+        assert set(d) == {"joint_3d", "total"}
+        msgs.append([str(w.message) for w in caught if "did not fire" in str(w.message)])
+    assert msgs[0] == msgs[1] and len(msgs[1]) == 1, msgs
+    assert "['open_2dj', 'tsa_poses', 'perceptual']" in msgs[1][0]
+
+
 def test_unported_loss_name_raises():
-    for name in ("perceptual", "triangle", "open_2dj", "texture"):
-        for field in ("losses", "losses_frei", "losses_rhd"):
+    """The photometric names (texture, mrgb, ssim_tex and their _self forms)
+    are accepted, as JAX's Config accepts them: those triples fire on
+    presence. A branch of JAX's stack that the port does not have raises."""
+    photometric = ("texture", "mrgb", "ssim_tex", "texture_self", "mrgb_self", "ssim_tex_self")
+    for field in ("losses", "losses_frei", "losses_rhd"):
+        Config(**{field: photometric})
+        for name in ("open_2dj_de", "joint_3d_norm", "kp_cons", "hm_integral", "hm_integral_gt"):
             with pytest.raises(NotImplementedError):
                 Config(**{field: (name,)})
     Config(losses=PORTED_LOSSES)  # every ported name is accepted

@@ -152,7 +152,8 @@ def test_port_imports_no_jax():
         "assert not bad, bad\n"
         "new = {'hifihr_tpu_torch.losses.basic', 'hifihr_tpu_torch.losses.ssim',\n"
         "       'hifihr_tpu_torch.losses.stack', 'hifihr_tpu_torch.training.train_state',\n"
-        "       'hifihr_tpu_torch.networks.batchnorm'}\n"
+        "       'hifihr_tpu_torch.networks.batchnorm', 'hifihr_tpu_torch.networks.efficientnet',\n"
+        "       'hifihr_tpu_torch.losses.perceptual', 'hifihr_tpu_torch.config'}\n"
         "assert new <= set(mods) and len(mods) >= 25, mods\n"
         "print(len(mods))\n"
     )

@@ -36,7 +36,8 @@ def randomize_variables(variables: dict, seed: int) -> dict:
                 tree[k] = rng.uniform(0.5, 1.5, x.shape).astype(np.float32)
 
     walk(v.get("batch_stats", {}))
-    v["params"]["encoder"]["mmpool"]["p"] = rng.randn(1).astype(np.float32)
+    if "mmpool" in v["params"]["encoder"]:  # the ResNet encoders' pool
+        v["params"]["encoder"]["mmpool"]["p"] = rng.randn(1).astype(np.float32)
     if "vert_tex" in v["params"]:
         v["params"]["vert_tex"] = (rng.randn(778, 3) * 0.3).astype(np.float32)
     return v
