@@ -5,8 +5,7 @@ builds both packages.
 A value the port cannot run as the JAX package does raises
 NotImplementedError naming the feature; an unknown value raises ValueError,
 as in the JAX package. Fields marked "carried" are kept for the JSON schema
-and read by nothing in the port yet (the training loop, the data layer and
-checkpoints are not ported).
+and read by nothing in the port yet.
 """
 
 from __future__ import annotations
@@ -66,7 +65,9 @@ class Config:
     # encoder compute dtype; parameters stay float32
     compute_dtype: str = "bfloat16"
 
-    # data (carried)
+    # data (the real-data loaders and their fields are not ported: a
+    # FreiHAND path that exists, RHD, HO3D and DART raise in
+    # hifihr_tpu_torch/train.py::build_loaders)
     train_datasets: tuple = ("FreiHand",)
     val_datasets: tuple = ("FreiHand",)
     train_queries: tuple = ("trans_images", "trans_Ks", "trans_joints")
@@ -123,32 +124,33 @@ class Config:
     force_init_lr: float = -1.0
     lr_steps: tuple = (50,)
     lr_gamma: float = 0.001
-    total_epochs: int = 100  # carried
-    train_batch: int = 8  # carried; chip_smoke.py runs the paper config at it
-    val_batch: int = 8  # carried; chip_smoke.py runs the paper config at it
-    num_workers: int = 8  # carried
-    decode_cache: str = ""  # carried
-    save_interval: int = 1  # carried
-    save_mode: str = "separately"  # carried
+    total_epochs: int = 100
+    train_batch: int = 8
+    val_batch: int = 8
+    num_workers: int = 8
+    decode_cache: str = ""  # carried: the FreiHAND loader is not ported
+    save_interval: int = 1
+    save_mode: str = "separately"
     only_train_regressor: bool = False
     only_train_texture: bool = False
 
-    # checkpointing / resume (carried)
+    # checkpointing / resume
     pretrain_model: str | None = None
     pretrain_texture_model: str | None = None
     pretrain_rgb2hm: str | None = None
-    # a converted imagenet encoder to start from; the port has no loader yet
+    # a converted imagenet encoder npz to start from
+    # (hifihr_tpu_torch/utils/weights.py::merge_npz_into_model)
     encoder_imagenet_npz: str | None = None
 
-    seed: int = 0  # carried: build_model takes its seed as an argument
+    seed: int = 0  # the seed of build_model's init in hifihr_tpu_torch/train.py
 
-    # logging (carried)
+    # logging
     base_out_path: str = "output/debug"
     demo_freq: int = 100
     print_freq: int = 100
     is_write_tb: bool = False
 
-    # the reference's passthroughs (carried)
+    # the reference's passthroughs
     mode: tuple = ("training",)
     is_val: bool = False
     if_test: bool = True
@@ -179,7 +181,7 @@ class Config:
             "rgb2hm": self.rgb2hm,  # the hourglass heatmap branch
             "freeze_hm_estimator": self.freeze_hm_estimator,
             "fsdp": self.fsdp != 1,  # the DP x FSDP mesh
-            "encoder_imagenet_npz": self.encoder_imagenet_npz is not None,  # the imagenet warm start
+            "test_refinement": self.test_refinement,  # training/fitting.py, the test-time MANO fit
         }
         for name, on in unported.items():
             if on:

@@ -38,6 +38,17 @@ def remap(joints: torch.Tensor, perm) -> torch.Tensor:
     list is copied to the device once."""
     return joints.index_select(-2, constant(perm, joints.device, torch.int64))
 
+# reference utils/fh_utils.py:614-626 (HO3D2Frei; {frei: ho3d})
+_FREI_FROM_HO3D = {0: 0,
+                   1: 13, 2: 14, 3: 15, 4: 16,
+                   5: 1, 6: 2, 7: 3, 8: 17,
+                   9: 4, 10: 5, 11: 6, 12: 18,
+                   13: 10, 14: 11, 15: 12, 16: 19,
+                   17: 7, 18: 8, 19: 9, 20: 20}
+HO3D_TO_FREI = np.array([_FREI_FROM_HO3D[i] for i in range(NUM_JOINTS)], dtype=np.int32)
+# FreiHAND order -> HO3D order, for the HO3D submission file
+FREI_TO_HO3D = np.argsort(HO3D_TO_FREI).astype(np.int32)
+
 # MANO kinematic joints (16) regressed by J_regressor, placed in the 21-joint
 # FreiHAND order; tips come from mesh vertices
 REGRESSED16_TO_FREI = {0: 0,

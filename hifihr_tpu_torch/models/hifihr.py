@@ -154,35 +154,34 @@ HEAD_OUT_SCALE = 1e-3
 
 
 def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
-    """Seeded random initialisation from a torch.Generator: zero biases, unit
-    BatchNorm scales with running stats (0, 1), zero MMPool mix and vertex
-    albedo, as the flax initialisers do; He-normal (fan_in) dense layers;
-    the EfficientNet encoder's convs as flax initialises them (its stem
-    variance_scaling(2, fan_out, truncated) over the s2d kernel's
-    (M, M, 4C, O) shape, every other conv lecun_normal, truncated, with
-    fan_in = (C_in / groups) k^2); the other convs He-normal (fan_out), the
-    init the port's ResNet cells are measured with. The hand heads' output
-    layers are scaled by HEAD_OUT_SCALE, so random weights predict a hand
-    near MANO's mean pose and shape."""
+    """Seeded random initialisation from a torch.Generator, with flax's
+    initialisers: zero biases, unit BatchNorm scales with running stats
+    (0, 1), zero MMPool mix and vertex albedo; every conv as flax draws it,
+    the s2d stems (ResNet's and EfficientNet's) variance_scaling(2,
+    fan_out, truncated) over the s2d kernel's (M, M, 4C, O) shape and every
+    other conv (the encoders', the light estimator's) lecun_normal,
+    truncated, with fan_in = (C_in / groups) k^2; the dense layers
+    He-normal (fan_in). The hand heads' output layers are scaled by
+    HEAD_OUT_SCALE, so random weights predict a hand near MANO's mean pose
+    and shape."""
     gen = torch.Generator(device="cpu").manual_seed(seed)
-    effnet = isinstance(getattr(model, "encoder", None), EffNetEncoder)
     with torch.no_grad():
         for name, m in model.named_modules():
-            if isinstance(m, (nn.Conv2d, nn.Linear)):
-                w = m.weight
-                if effnet and name.startswith("encoder."):
-                    if isinstance(m, StemConv):
-                        variance_scaling_(w, 2.0, m.taps ** 2 * w.shape[0], gen)
-                    else:
-                        variance_scaling_(w, 1.0, w[0].numel(), gen)
-                else:
-                    fan = w.shape[0] * w[0, 0].numel() if isinstance(m, nn.Conv2d) else w.shape[1]
-                    scale = HEAD_OUT_SCALE if name.startswith("hand_encoder.") and name.endswith("_out") else 1.0
-                    w.copy_(torch.randn(w.shape, generator=gen) * (2.0 / fan) ** 0.5 * scale)
-                if m.bias is not None:
-                    m.bias.zero_()
-            elif isinstance(m, nn.modules.batchnorm._BatchNorm):
+            if isinstance(m, nn.modules.batchnorm._BatchNorm):
                 m.reset_parameters()
+                continue
+            if isinstance(m, StemConv):
+                variance_scaling_(m.weight, 2.0, m.taps ** 2 * m.weight.shape[0], gen)
+            elif isinstance(m, nn.Conv2d):
+                variance_scaling_(m.weight, 1.0, m.weight[0].numel(), gen)
+            elif isinstance(m, nn.Linear):
+                w = m.weight
+                scale = HEAD_OUT_SCALE if name.startswith("hand_encoder.") and name.endswith("_out") else 1.0
+                w.copy_(torch.randn(w.shape, generator=gen) * (2.0 / w.shape[1]) ** 0.5 * scale)
+            else:
+                continue
+            if m.bias is not None:
+                m.bias.zero_()
         for name, p in model.named_parameters():
             if name.endswith("mmpool.p") or name == "vert_tex":
                 p.zero_()

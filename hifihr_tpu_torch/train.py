@@ -1,0 +1,126 @@
+"""Training and evaluation entry (counterpart of the root train.py):
+
+    python -m hifihr_tpu_torch.train --config_json configs/smoke_render.json \
+        [--mode training|evaluation] [--device cuda|cpu]
+
+The JSON config selects the datasets, the supervision, the encoder, the hand
+model and the λ weights; the same entry trains and evaluates. It runs on
+CUDA unless `--device cpu` is given. Where FreiHAND's path is not set or
+missing, the synthetic stand-in serves its batches, as in the JAX package;
+the real-data loaders (FreiHAND, RHD, HO3D, DART) are not ported yet
+(ROADMAP.md section 1 item 6) and raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+import os
+
+import numpy as np
+
+_NOT_PORTED = "the {} loader is not ported yet (ROADMAP.md section 1 item 6)"
+
+
+def build_loaders(config):
+    from hifihr_tpu_torch.data.base import BatchLoader, ConcatLoader, Subset
+    from hifihr_tpu_torch.data.synthetic import SyntheticHandDataset
+
+    def dataset_for(name: str):
+        if name == "FreiHand":
+            if config.freihand_base_path and os.path.exists(config.freihand_base_path):
+                raise NotImplementedError(_NOT_PORTED.format("FreiHAND"))
+            logging.warning("FreiHAND data not found; using the synthetic stand-in")
+            size = config.controlled_size if config.controlled_exp else 256
+            return SyntheticHandDataset(size=size, image_size=config.image_size)
+        raise NotImplementedError(_NOT_PORTED.format(name))
+
+    train_loaders = []
+    for name in config.train_datasets:
+        ds = dataset_for(name)
+        # controlled-size experiments subset any training dataset
+        # (reference data/dataset.py:97-106 limit_size)
+        if config.controlled_exp and not isinstance(ds, SyntheticHandDataset):
+            ds = Subset(ds, config.controlled_size)
+        train_loaders.append(BatchLoader(ds, config.train_batch, num_workers=config.num_workers))
+    train_loader = ConcatLoader(train_loaders) if len(train_loaders) > 1 else train_loaders[0]
+
+    val_loader = None
+    if config.val_datasets:
+        ds = dataset_for(config.val_datasets[0])
+        val_loader = BatchLoader(ds, config.val_batch, shuffle=False, drop_last=False,
+                                 num_workers=config.num_workers)
+    return train_loader, val_loader
+
+
+def load_eval_gt(config, val_loader=None):
+    """FreiHAND's evaluation_xyz.json and evaluation_verts.json under its
+    base path; else, for the synthetic stand-in, its own exact ground truth
+    (Procrustes alignment absorbs the root convention); else None."""
+    from hifihr_tpu_torch.data.synthetic import SyntheticHandDataset
+
+    base = config.freihand_base_path
+    if base:
+        xyz_p = os.path.join(base, "evaluation_xyz.json")
+        verts_p = os.path.join(base, "evaluation_verts.json")
+        if os.path.exists(xyz_p) and os.path.exists(verts_p):
+            with open(xyz_p) as f:
+                xyz = np.asarray(json.load(f), np.float32)
+            with open(verts_p) as f:
+                verts = np.asarray(json.load(f), np.float32)
+            return {"xyz": xyz, "verts": verts}
+    ds = getattr(val_loader, "dataset", None)
+    if isinstance(ds, SyntheticHandDataset):
+        return {"xyz": ds.joints, "verts": ds.verts}
+    return None
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description="Train or evaluate hifihr_tpu_torch from a JSON config.")
+    parser.add_argument("--config_json", type=str, required=True)
+    parser.add_argument("--mode", type=str, default=None, choices=["training", "evaluation"])
+    parser.add_argument("--device", type=str, default=None, choices=["cuda", "cpu"],
+                        help="default: cuda")
+    args = parser.parse_args(argv)
+
+    from hifihr_tpu_torch import resolve_device
+    from hifihr_tpu_torch.config import Config
+    from hifihr_tpu_torch.models.hifihr import build_model
+    from hifihr_tpu_torch.training.loop import Trainer
+
+    device = resolve_device(args.device)
+    config = Config.from_json(args.config_json)
+    os.makedirs(config.base_out_path, exist_ok=True)
+    root = logging.getLogger()
+    handlers = [logging.StreamHandler(),
+                logging.FileHandler(os.path.join(config.base_out_path, "train.log"))]
+    for h in handlers:
+        h.setFormatter(logging.Formatter(logging.BASIC_FORMAT))
+        root.addHandler(h)
+    root.setLevel(logging.INFO)
+    trainer = None
+    try:
+        logging.info("config: %s", config)
+        model = build_model(config, device=device, seed=config.seed)
+        train_loader, val_loader = build_loaders(config)
+        trainer = Trainer(config, model, train_loader, val_loader,
+                          eval_gt=load_eval_gt(config, val_loader), out_dir=config.base_out_path)
+        mode = args.mode or (config.mode[0] if config.mode else "training")
+        if mode == "evaluation":
+            result = trainer.evaluate()
+            logging.info("evaluation: %s", result)
+        else:
+            result = trainer.fit()
+            logging.info("best PA-MPJPE (cm): %s", result)
+        return result
+    finally:
+        if trainer is not None:
+            trainer.close()
+        for h in handlers:
+            root.removeHandler(h)
+            h.close()
+
+
+if __name__ == "__main__":
+    main()

@@ -4,8 +4,8 @@ a MultiStepLR-style piecewise-constant learning rate, and module freezing.
 
 The reference recipe: Adam/AdamW + MultiStepLR(lr_steps, lr_gamma)
 (train_hrnet.py:546-554), with `force_init_lr` overriding the initial rate
-(:557-558). The imagenet warm start of the JAX package waits until converted
-encoder weights are in the repository.
+(:557-558). `create_train_state` starts the encoder from a converted imagenet
+npz when there is one (utils/weights.py::encoder_npz_for).
 
 `Adam` keeps every trained parameter as a view into one flat fp32 buffer,
 and its gradient as a view into another, so one update is a handful of
@@ -139,11 +139,18 @@ def create_train_state(model: nn.Module, config: Config, sample_batch: dict | No
     """Adam (or AdamW) over the model's trained parameters. `sample_batch`
     is the JAX signature's init batch: the port's model already holds its
     weights (build_model, or a converted state dict), so it is not read.
-    Freezing follows the reference (utils/train_utils.py:205-240):
-    only_train_regressor freezes the encoder, the light estimator and the
+    A converted imagenet encoder npz, when `encoder_npz_for(config)` finds
+    one, is copied into the model first, as the JAX package merges it into
+    its fresh variables (reference res_encoder.py:349-353). Freezing
+    follows the reference (utils/train_utils.py:205-240): only_train_regressor freezes the encoder, the light estimator and the
     albedo; only_train_texture the encoder and the hand heads' base, pose
     and shape layers."""
+    from hifihr_tpu_torch.utils.weights import encoder_npz_for, merge_npz_into_model
+
     del sample_batch
+    npz = encoder_npz_for(config)
+    if npz:
+        merge_npz_into_model(npz, model)
     frozen: tuple[str, ...] = ()
     if config.only_train_regressor:
         frozen = ("encoder", "light_estimator", "hand_encoder/tex", "vert_tex")

@@ -70,10 +70,13 @@ def test_overrides_and_unported_values():
     for bad, feature in ((dict(four_channel=True), "four_channel"), (dict(fsdp=2), "fsdp"),
                          (dict(rgb2hm=True), "rgb2hm"), (dict(freeze_hm_estimator=True), "freeze_hm_estimator"),
                          (dict(pretrain="hr18sv2"), "hr18sv2"), (dict(pretrain="none"), "none"),
-                         (dict(encoder_imagenet_npz="x.npz"), "encoder_imagenet_npz"),
+                         (dict(test_refinement=True), "test_refinement"),
                          (dict(aa_mode="ssaa"), "NIMBLE"), (dict(nimble_corner_tex=False), "NIMBLE")):
         err, _ = _load(Config, path, **bad)
         assert isinstance(err, NotImplementedError) and feature in str(err), (bad, err)
+    # the imagenet warm start is ported (hifihr_tpu_torch/utils/weights.py)
+    cfg, _ = _load(Config, path, encoder_imagenet_npz="x.npz")
+    assert cfg.encoder_imagenet_npz == "x.npz"
     for bad in (dict(pretrain="effb7"), dict(hand_model="ytb"), dict(train_datasets=["COCO"])):
         with pytest.raises(ValueError):
             Config.from_dict(bad)

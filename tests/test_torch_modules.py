@@ -290,3 +290,39 @@ def test_normalize_batch_and_cuda_default():
     else:
         with pytest.raises(RuntimeError):
             build_model(Config(pretrain="res18", light_estimation=False, image_size=32))
+
+
+@pytest.mark.parametrize("pretrain", ["res18", "res50"])
+def test_init_distributions_resnet(pretrain):
+    """init_weights draws every conv of the ResNet models as flax does: the
+    s2d stem variance_scaling(2, fan_out) over its (4, 4, 12, 64) shape, the
+    other convs (the encoder's, the light estimator's) lecun_normal with
+    fan_in = C_in k^2, all truncated at 2 sigma, biases zero. Each conv's
+    std is held against the wanted one and against a flax model.init of the
+    same config (224^2, light estimation on, no render) within 5% or 5
+    sigma of the std's estimate, 5 / sqrt(2n), whichever is tighter."""
+    from hifihr_tpu.models.hifihr import HiFiHR as JModel
+    from hifihr_tpu_torch.convert import state_dict_from_flax
+    from hifihr_tpu_torch.models.hifihr import HiFiHR, init_weights
+    from hifihr_tpu_torch.networks.resnet import StemConv
+    from torch_port_helpers import numpy_tree
+
+    d = dict(pretrain=pretrain, hand_model="mano", render=False, light_estimation=True, image_size=224)
+    jm = JModel(config=JConfig(**d))
+    v = jm.init(jax.random.PRNGKey(7), jnp.zeros((1, 224, 224, 3)), train=False)
+    jsd = state_dict_from_flax(numpy_tree(v))
+    model = init_weights(HiFiHR(Config(**d)), seed=3)
+    convs = {n: m for n, m in model.named_modules() if isinstance(m, torch.nn.Conv2d)}
+    assert len(convs) == {"res18": 20, "res50": 53}[pretrain] + 3  # the light estimator's three
+    for name, m in convs.items():
+        w, ref = m.weight.detach(), jsd[f"{name}.weight"]
+        if isinstance(m, StemConv):
+            want = (2.0 / (4 * 4 * 64)) ** 0.5
+        else:
+            want = (1.0 / w[0].numel()) ** 0.5
+        tol = min(0.05, 5 / (2 * w.numel()) ** 0.5)
+        for x in (w, ref):
+            assert abs(x.std().item() / want - 1) < tol, (name, x.std().item(), want)
+            assert x.abs().max().item() <= 2 * want / 0.87962566103423978 * (1 + 1e-6), name
+        if m.bias is not None:
+            assert not m.bias.any()
