@@ -120,9 +120,11 @@ over a few eval steps and a few train steps of every cell. Phases:
      `train_hand` (MANO's, SSAA's and effb3's), K4 also on the NIMBLE-sized
      scenes (`nimble_sized`); K1, K2 and K3 carry their NIMBLE readings
      under `nimble` (ms, plain and library ms, bound, and the NIMBLE and
-     paper train steps' inputs); and, from phase 17, every kernel's
+     paper train steps' inputs); and, from phases 17 and 18, every kernel's
      launches per Trainer step under `launches_trainer_train_step` and
-     `launches_trainer_eval_step`
+     `launches_trainer_eval_step` (smoke_render) and
+     `launches_trainer_paper_train_step` and
+     `launches_trainer_paper_eval_step` (the paper config from the tree)
  17. the Trainer through the entry a user calls:
      hifihr_tpu_torch.train.main(["--config_json", <configs/smoke_render.json
      with only base_out_path moved into a temporary directory>]) in-process
@@ -147,6 +149,29 @@ over a few eval steps and a few train steps of every cell. Phases:
      as the step phases time theirs). The card's
      machine has no matplotlib, so the eval's demo grid logs a viz_error;
      it is printed and, as in the JAX package, is no failure
+ 18. the paper config from a FreiHAND-format tree, through the same entry:
+     hifihr_tpu_torch/data/freihand_tree.py writes FREI_TRAIN (480)
+     training frames (x 4 colour versions) and FreiHAND's 3,960 evaluation
+     frames at 224^2 into a temporary directory (48 frames encoded by
+     Pillow at quality 92, the rest hard links), and main() runs
+     configs/FreiHAND/full_rhd_freihand.json as it ships (NIMBLE, effb3, 12
+     losses, batch 48 and 16, 8 loader threads) with only the tree's path,
+     the out dir, controlled_exp/controlled_size 480 (10 steps an epoch),
+     total_epochs 2, save_interval 1 (an eval after each epoch) and a
+     decode_cache directory moved: epoch 0 decodes the JPEGs and fills the
+     cache, epoch 1 reads it; each eval decodes the 3,960 frames. Checks:
+     the native warp library loaded and the JPEG decoder named (Pillow
+     where libjpeg's header is missing, as on the card's host), each of 8
+     frames decoding to the same bytes twice and within
+     JPEG_SOURCE_MEAN_ABS levels of its source pixels; a seeded
+     augmentation's native warp within 1/255 + 1e-6 of the numpy path;
+     both epochs logged, no skipped step,
+     every term and eval number finite, no sample substituted, and the
+     launches per Trainer train and eval step equal to the paper train and
+     eval cells'. It prints decode and warp ms per
+     frame (one thread, medians), the loader's batches/s alone (8 threads, decoding and
+     cached), images/s and the prefetch wait per epoch, each eval's
+     seconds, and device busy ms and launches per Trainer train step
 
 Every step phase prints its median, images/s, device busy ms and launches
 per step (torch.profiler over two steps), peak memory and its seconds; the
@@ -164,6 +189,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import logging
 import os
 import statistics
 import subprocess
@@ -1544,6 +1570,23 @@ def trainer_probes(record: dict):
                                                                                      orig_eval)
 
 
+def trainer_step_launches(run: dict, key: str, cell_launches: dict, cell: str) -> dict:
+    """The kernels' launches per Trainer train step and eval step of a
+    `trainer_probes` record, under `{key}train_step` and `{key}eval_step`:
+    the same in every epoch and eval, and equal to the step cell's
+    (`cell_launches[f"{cell}train_step"]`, ...)."""
+    per_step = {}
+    for step, runs, count in (("train_step", run["epochs"], "steps"), ("eval_step", run["evals"], "batches")):
+        per = {k: {r["launches"][k] / r[count] for r in runs.values()} for k in run["epochs"][0]["launches"]}
+        check(all(len(v) == 1 and next(iter(v)).is_integer() for v in per.values()),
+              f"the same launches in every {key}{step}: {per}")
+        per_step[key + step] = {k: int(next(iter(v))) for k, v in per.items()}
+        check(per_step[key + step] == cell_launches[cell + step],
+              f"the Trainer's {key}{step} launches the {cell or 'MANO '}{step} cell's kernels: "
+              f"{per_step[key + step]} vs {cell_launches[cell + step]}")
+    return per_step
+
+
 def phase_trainer(cell_launches: dict) -> dict:
     """Phase 17: `python -m hifihr_tpu_torch.train --config_json
     configs/smoke_render.json` in-process on the card (hifihr_tpu_torch.train.main),
@@ -1589,17 +1632,7 @@ def phase_trainer(cell_launches: dict) -> dict:
             print(f"trainer epoch {e}: " + json.dumps(rec))
         for e, rec in run1["evals"].items():
             print(f"trainer eval at epoch {e}: " + json.dumps(rec))
-        per_step = {}
-        for key, runs, count in (("trainer_train_step", run1["epochs"], "steps"),
-                                 ("trainer_eval_step", run1["evals"], "batches")):
-            per = {k: {r["launches"][k] / r[count] for r in runs.values()} for k in run1["epochs"][0]["launches"]}
-            check(all(len(v) == 1 and next(iter(v)).is_integer() for v in per.values()),
-                  f"the same launches in every {key}: {per}")
-            per_step[key] = {k: int(next(iter(v))) for k, v in per.items()}
-        for key, cell in (("trainer_train_step", "train_step"), ("trainer_eval_step", "eval_step")):
-            check(per_step[key] == cell_launches[cell],
-                  f"the Trainer's {key} launches the MANO {cell} cell's kernels: {per_step[key]} vs "
-                  f"{cell_launches[cell]}")
+        per_step = trainer_step_launches(run1, "trainer_", cell_launches, "")
         print("trainer launches per step: " + json.dumps(per_step))
 
         # run 2: resume from run 1's model/ dir for a third epoch, under
@@ -1656,6 +1689,199 @@ def phase_trainer(cell_launches: dict) -> dict:
         numbers["eval"] = evals[-1]
         print("trainer (smoke_render): " + json.dumps(numbers))
     print(f"phase trainer: {time.perf_counter() - t0:.1f} s")
+    return per_step
+
+
+# phase 18: the paper config trains from a FreiHAND-format tree: FreiHAND's
+# 3,960 evaluation frames and FREI_TRAIN training frames (controlled_size, 10
+# steps of 48), FREI_DISTINCT of them encoded and the rest hard links
+FREI_TRAIN, FREI_EVAL, FREI_DISTINCT = 480, 3960, 48
+# the warp check: the native warp's float output against the numpy path's
+WARP_TOL = 1 / 255 + 1e-6
+# the decode check against the frames' numpy source pixels (Pillow's
+# encoder at quality 92, 4:2:0): mean |delta| in levels; the decode reads
+# ~1.27 levels on these frames on an H100's host
+JPEG_SOURCE_MEAN_ABS = 2.0
+
+
+def _paper_tree_copy(directory: str, tree: str, cache: str) -> str:
+    """configs/FreiHAND/full_rhd_freihand.json as it ships, with the fields
+    that point it at the tree and a temporary directory moved, two epochs of
+    controlled_size frames, and an eval after each (save_interval 1: the
+    shipped 10 would save and evaluate only at epoch 9)."""
+    with open(PAPER_CONFIG) as f:
+        raw = json.load(f)
+    raw.update(freihand_base_path=tree, base_out_path=os.path.join(directory, "out"), controlled_exp=True,
+               controlled_size=FREI_TRAIN, total_epochs=2, save_interval=1, decode_cache=cache)
+    path = os.path.join(directory, "paper_tree.json")
+    with open(path, "w") as f:
+        json.dump(raw, f)
+    return path
+
+
+def _median_ms(fn, reps: int) -> float:
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times) * 1e3
+
+
+def check_tree_frames(tree: str, src: dict) -> dict:
+    """On the tree's first 8 training frames: each decodes to the same bytes
+    in two calls and within JPEG_SOURCE_MEAN_ABS levels of its source
+    pixels; a seeded FreiHAND augmentation's native warp within
+    WARP_TOL of the numpy path. Returns the decode and warp ms per frame
+    (one thread, medians over the 48 distinct frames)."""
+    from hifihr_tpu_torch.data import native
+    from hifihr_tpu_torch.geometry import crops
+
+    name = native.decoder()
+    aug = np.random.RandomState(0)
+    worst = {"source_mean_abs": 0.0, "warp_max_abs": 0.0}
+    for i in range(8):
+        with open(os.path.join(tree, "training", "rgb", "%08d.jpg" % i), "rb") as f:
+            data = f.read()
+        px = native.decode_jpeg(data)
+        check(px.tobytes() == native.decode_jpeg(data).tobytes(), f"frame {i} decodes to the same bytes twice")
+        d = float(np.abs(px.astype(np.float64) - src["images"][i % FREI_DISTINCT]).mean())
+        worst["source_mean_abs"] = max(worst["source_mean_abs"], d)
+        check(d <= JPEG_SOURCE_MEAN_ABS, f"frame {i} within {JPEG_SOURCE_MEAN_ABS} levels of its source: {d}")
+        aff, _ = crops.get_affine_transform(np.asarray([112, 112]), 224, [224, 224],
+                                            rot=aug.uniform(-np.pi, np.pi))
+        native_px = crops.transform_img(px, aff, [224, 224])
+        numpy_px = crops.transform_img(px.astype(np.float32) / 255.0, aff, [224, 224])
+        w = float(np.abs(native_px - numpy_px).max())
+        worst["warp_max_abs"] = max(worst["warp_max_abs"], w)
+        check(w <= WARP_TOL, f"frame {i}: the native warp within {WARP_TOL} of the numpy path: {w}")
+    print("tree frames checked (worst of 8): " + json.dumps(worst))
+    frames = []
+    for i in range(FREI_DISTINCT):
+        with open(os.path.join(tree, "training", "rgb", "%08d.jpg" % i), "rb") as f:
+            frames.append(f.read())
+    decoded = [native.decode_jpeg(d) for d in frames]
+    aff, _ = crops.get_affine_transform(np.asarray([112, 112]), 224, [224, 224], rot=0.6)
+    mask = (src["masks"][0] >= 128).astype(np.uint8) * 255
+    it = iter(range(10**9))
+    return {"decoder": name,
+            "decode_ms": _median_ms(lambda: native.decode_jpeg(frames[next(it) % FREI_DISTINCT]), 200),
+            "warp_ms": _median_ms(lambda: crops.transform_img(decoded[next(it) % FREI_DISTINCT], aff, [224, 224],
+                                                              out_u8=True), 200),
+            "mask_warp_ms": _median_ms(lambda: crops.transform_img(mask, aff, [224, 224], out_u8=True), 200),
+            **worst}
+
+
+def loader_alone(tree: str, cache: str, queries: tuple, batch: int, workers: int) -> dict:
+    """The paper config's train loader over the tree (controlled_size
+    frames, its queries, batch and threads), with no step beside it:
+    batches/s in an epoch that decodes and fills a decoded-frame cache, and
+    in one that reads it."""
+    from hifihr_tpu_torch.data.base import BatchLoader, Subset
+    from hifihr_tpu_torch.data.freihand import FreiHand
+
+    loader = BatchLoader(Subset(FreiHand(tree, queries=queries, decode_cache=cache), FREI_TRAIN), batch,
+                         num_workers=workers)
+    out = {}
+    for epoch in ("decode", "cached"):
+        t0 = time.perf_counter()
+        n = sum(1 for _ in loader)
+        out[f"{epoch}_batches_per_s"] = n / (time.perf_counter() - t0)
+    return out
+
+
+class _Substitutions(logging.Handler):
+    """Counts the BatchLoader's "substituting" warnings (a sample that
+    failed to load, served by another)."""
+
+    def __init__(self):
+        super().__init__(logging.WARNING)
+        self.messages = []
+
+    def emit(self, record):
+        if "substituting" in record.getMessage():
+            self.messages.append(record.getMessage())
+
+
+def phase_real_data(cell_launches: dict) -> dict:
+    """Phase 18: `python -m hifihr_tpu_torch.train` in-process on the card
+    (hifihr_tpu_torch.train.main) on the paper config, reading a
+    FreiHAND-format tree written into a temporary directory. Returns the
+    launches per Trainer train step and eval step."""
+    import tempfile
+
+    from hifihr_tpu_torch import train as entry
+    from hifihr_tpu_torch.data import native
+    from hifihr_tpu_torch.data.freihand_tree import write_freihand_tree
+    from hifihr_tpu_torch.data.pipeline import prefetch_to_device
+    from hifihr_tpu_torch.training.steps import make_sched
+
+    t0 = time.perf_counter()
+    with open(PAPER_CONFIG) as f:
+        shipped = json.load(f)
+    with tempfile.TemporaryDirectory(prefix="hifihr_freihand_") as tmp:
+        tree = os.path.join(tmp, "freihand")
+        t = time.perf_counter()
+        src = write_freihand_tree(tree, FREI_TRAIN, FREI_EVAL, distinct=FREI_DISTINCT, seed=0)
+        print(f"FreiHAND-format tree: {FREI_TRAIN} training frames x 4 versions, {FREI_EVAL} evaluation "
+              f"frames, {FREI_DISTINCT} encoded (Pillow, quality 92), written in {time.perf_counter() - t:.2f} s")
+        built = native.available()
+        check(os.path.dirname(built["warp"]) == native.BUILD_DIR, f"the native warp library is loaded: {built}")
+        print(f"native warp library: {built['warp']}")
+        print(f"JPEG decoder: {built['decoder']}")
+        numbers = {"frames": check_tree_frames(tree, src)}
+        numbers["loader_alone"] = loader_alone(tree, os.path.join(tmp, "cache_alone"),
+                                               tuple(shipped["train_queries"]), shipped["train_batch"],
+                                               shipped["num_workers"])
+        print("real-data loader: " + json.dumps(numbers))
+
+        subs = _Substitutions()
+        logging.getLogger().addHandler(subs)
+        try:
+            with trainer_probes({}) as run:
+                entry.main(["--config_json", _paper_tree_copy(tmp, tree, os.path.join(tmp, "cache"))])
+        finally:
+            logging.getLogger().removeHandler(subs)
+        check(not subs.messages, f"no sample substituted: {subs.messages[:3]}")
+        log = _read_log(os.path.join(tmp, "out"))
+        epochs = [r for r in log if "train_loss" in r]
+        check([r["epoch"] for r in epochs] == [0, 1], f"train_log.jsonl holds both epochs: {epochs}")
+        check(all(r["skipped_steps"] == 0 for r in epochs), f"no skipped step: {epochs}")
+        steps = [r for r in log if "step" in r]
+        check(steps and all(np.isfinite(v) for r in steps for k, v in r.items() if isinstance(v, float)),
+              "every logged term finite")
+        evals = [r["eval"] for r in log if "eval" in r]
+        check(len(evals) == 2, f"an eval after each epoch: {len(evals)}")
+        for ev in evals:
+            nums = {k: v for k, v in ev.items() if isinstance(v, float)}
+            check(nums and all(np.isfinite(v) for v in nums.values()), f"eval record finite: {ev}")
+        for r in log:
+            if "viz_error" in r:
+                print(f"trainer viz_error (logged, not a failure, as in the JAX package): {r['viz_error']}")
+        trainer = run["trainer"]
+        check(len(trainer.val_loader.dataset) == FREI_EVAL and len(trainer.train_loader) == FREI_TRAIN // 48,
+              "the eval covers FreiHAND's 3,960 frames and an epoch is 10 steps")
+        per_step = trainer_step_launches(run, "trainer_paper_", cell_launches, "paper_")
+        print("trainer (paper, FreiHAND tree) launches per step: " + json.dumps(per_step))
+
+        batches = prefetch_to_device(trainer.train_loader, trainer.device)
+        batch = next(batches)
+        batches.close()
+        batch.pop("dataset")
+        train_step = trainer._step_for("FreiHand", True)
+        sched = make_sched(trainer.config, 1, trainer.device)
+        numbers["train_device_busy_ms"], numbers["train_launches_per_step"] = device_profile(
+            lambda: train_step(trainer.state, batch, sched))
+        for e, rec in sorted(run["epochs"].items()):
+            rec_log = next(r for r in log if r.get("epoch") == e and "train_loss" in r)
+            numbers[f"epoch{e}"] = {"images_per_sec": rec_log["images_per_sec"], "train_loss": rec_log["train_loss"],
+                                    "seconds": rec["seconds"], "prefetch_wait_s": rec["prefetch_wait_s"],
+                                    "prefetch_wait_share": rec["prefetch_wait_s"] / rec["seconds"]}
+        numbers["eval_seconds"] = [r["seconds"] for r in run["evals"].values()]
+        numbers["eval"] = evals[-1]
+        print("trainer (paper, FreiHAND tree): " + json.dumps(numbers))
+    print(f"phase real data: {time.perf_counter() - t0:.1f} s")
     return per_step
 
 
@@ -1730,6 +1956,8 @@ def main() -> int:
 
     # phase 17: the Trainer through the entry, on configs/smoke_render.json
     trainer = phase_trainer(launches)
+    # phase 18: the paper config through the entry, from a FreiHAND-format tree
+    trainer.update(phase_real_data(launches))
 
     table[0]["train_hand"] = hands[""]["K1"] + hands["ssaa_"]["K1"] + hands["effb3_"]["K1"]
     table[2]["train_hand"] = hands[""]["K3"] + hands["ssaa_"]["K3"] + hands["effb3_"]["K3"]

@@ -128,7 +128,7 @@ class Config:
     train_batch: int = 8
     val_batch: int = 8
     num_workers: int = 8
-    decode_cache: str = ""  # carried: the FreiHAND loader is not ported
+    decode_cache: str = ""  # the FreiHAND loader's decoded-frame snapshot dir
     save_interval: int = 1
     save_mode: str = "separately"
     only_train_regressor: bool = False

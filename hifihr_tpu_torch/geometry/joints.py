@@ -1,5 +1,6 @@
-"""Joint-order constants used by the MANO and NIMBLE layers and
-`regress_joints_frei` (copied from hifihr_tpu/geometry/joints.py).
+"""Joint-order constants used by the MANO and NIMBLE layers,
+`regress_joints_frei` and the real-data loaders (copied from
+hifihr_tpu/geometry/joints.py).
 
 FreiHAND order: 0 wrist; 1-4 thumb; 5-8 index; 9-12 middle; 13-16 ring;
 17-20 pinky (base -> tip).
@@ -31,6 +32,24 @@ _MANO2FREI = {0: 0,
               13: 13, 14: 14, 15: 15, 16: 16,
               17: 1, 18: 2, 19: 3, 20: 4}
 MANO_TO_FREI = _perm_from_mapping(_MANO2FREI)
+# reference utils/fh_utils.py:558-571 (Mano2RHD)
+_MANO2RHD = {0: 0,
+             1: 8, 2: 7, 3: 6, 4: 5,
+             5: 12, 6: 11, 7: 10, 8: 9,
+             9: 20, 10: 19, 11: 18, 12: 17,
+             13: 16, 14: 15, 15: 14, 16: 13,
+             17: 4, 18: 3, 19: 2, 20: 1}
+MANO_TO_RHD = _perm_from_mapping(_MANO2RHD)
+RHD_TO_MANO = np.argsort(MANO_TO_RHD).astype(np.int32)
+# reference utils/fh_utils.py:600-612 (RHD2Frei; {frei: rhd}): the RHD
+# loader's remap to FreiHAND order
+_FREI_FROM_RHD = {0: 0,
+                  1: 4, 2: 3, 3: 2, 4: 1,
+                  5: 8, 6: 7, 7: 6, 8: 5,
+                  9: 12, 10: 11, 11: 10, 12: 9,
+                  13: 16, 14: 15, 15: 14, 16: 13,
+                  17: 20, 18: 19, 19: 18, 20: 17}
+RHD_TO_FREI = np.array([_FREI_FROM_RHD[i] for i in range(NUM_JOINTS)], dtype=np.int32)
 
 
 def remap(joints: torch.Tensor, perm) -> torch.Tensor:

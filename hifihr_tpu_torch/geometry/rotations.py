@@ -1,5 +1,7 @@
-"""Axis-angle -> rotation matrix through the quaternion path (counterpart of
-hifihr_tpu/geometry/rotations.py), with manopth's norm(x + 1e-8)."""
+"""Axis-angle <-> rotation matrix (counterpart of
+hifihr_tpu/geometry/rotations.py): to the matrix through the quaternion
+path, with manopth's norm(x + 1e-8); back through the trace and the
+skew-symmetric part (DART's loader takes its root rotation so)."""
 
 from __future__ import annotations
 
@@ -32,3 +34,21 @@ def quaternion_to_matrix(quat: torch.Tensor) -> torch.Tensor:
 def axis_angle_to_matrix(axisang: torch.Tensor) -> torch.Tensor:
     """(..., 3) axis-angle -> (..., 3, 3), smooth at theta ~ 0."""
     return quaternion_to_matrix(axis_angle_to_quaternion(axisang))
+
+
+def matrix_to_axis_angle(mat: torch.Tensor, eps: float = 1e-7) -> torch.Tensor:
+    """(..., 3, 3) rotation matrix -> (..., 3) axis-angle."""
+    trace = mat[..., 0, 0] + mat[..., 1, 1] + mat[..., 2, 2]
+    cos = torch.clamp((trace - 1.0) * 0.5, -1.0 + eps, 1.0 - eps)
+    angle = torch.arccos(cos)
+    axis = torch.stack(
+        [
+            mat[..., 2, 1] - mat[..., 1, 2],
+            mat[..., 0, 2] - mat[..., 2, 0],
+            mat[..., 1, 0] - mat[..., 0, 1],
+        ],
+        dim=-1,
+    )
+    sin = torch.sin(angle)[..., None]
+    axis = axis / torch.where(torch.abs(sin) < eps, 1.0, 2.0 * sin)
+    return axis * angle[..., None]

@@ -5,10 +5,10 @@
 
 The JSON config selects the datasets, the supervision, the encoder, the hand
 model and the λ weights; the same entry trains and evaluates. It runs on
-CUDA unless `--device cpu` is given. Where FreiHAND's path is not set or
-missing, the synthetic stand-in serves its batches, as in the JAX package;
-the real-data loaders (FreiHAND, RHD, HO3D, DART) are not ported yet
-(ROADMAP.md section 1 item 6) and raise NotImplementedError.
+CUDA unless `--device cpu` is given. The datasets come from the config's
+paths: FreiHAND, RHD, HO-3D and DART (data/{freihand,rhd,ho3d,dart}.py);
+where FreiHAND's path is not set or missing, the synthetic stand-in serves
+its batches, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -20,25 +20,48 @@ import os
 
 import numpy as np
 
-_NOT_PORTED = "the {} loader is not ported yet (ROADMAP.md section 1 item 6)"
-
-
 def build_loaders(config):
+    """The train loader (one BatchLoader per train dataset, round-robin
+    through a ConcatLoader when there are several) and the val loader, as
+    the JAX package's train.py builds them."""
     from hifihr_tpu_torch.data.base import BatchLoader, ConcatLoader, Subset
     from hifihr_tpu_torch.data.synthetic import SyntheticHandDataset
 
-    def dataset_for(name: str):
+    def dataset_for(name: str, split: str, queries):
         if name == "FreiHand":
             if config.freihand_base_path and os.path.exists(config.freihand_base_path):
-                raise NotImplementedError(_NOT_PORTED.format("FreiHAND"))
+                from hifihr_tpu_torch.data.freihand import FreiHand
+
+                return FreiHand(config.freihand_base_path, split=split,
+                                queries=queries, semi_ratio=config.semi_ratio,
+                                four_channel=config.four_channel,
+                                decode_cache=config.decode_cache or None)
             logging.warning("FreiHAND data not found; using the synthetic stand-in")
             size = config.controlled_size if config.controlled_exp else 256
             return SyntheticHandDataset(size=size, image_size=config.image_size)
-        raise NotImplementedError(_NOT_PORTED.format(name))
+        if name == "RHD":
+            from hifihr_tpu_torch.data.rhd import RHD
+
+            return RHD(config.rhd_base_path, split=split, queries=queries)
+        if name == "HO3D":
+            from hifihr_tpu_torch.data.ho3d import HO3D
+
+            return HO3D(config.ho3d_base_path, split=split, queries=queries)
+        if name == "Dart":
+            from hifihr_tpu_torch.data.dart import DARTset
+
+            return DARTset(config.dart_base_path, split=split)
+        raise ValueError(name)
 
     train_loaders = []
     for name in config.train_datasets:
-        ds = dataset_for(name)
+        q = {
+            "FreiHand": config.train_queries_frei,
+            "RHD": config.train_queries_rhd,
+            "HO3D": config.train_queries_ho3d,
+            "Dart": config.train_queries_dart,
+        }.get(name) or config.train_queries
+        ds = dataset_for(name, "training", q)
         # controlled-size experiments subset any training dataset
         # (reference data/dataset.py:97-106 limit_size)
         if config.controlled_exp and not isinstance(ds, SyntheticHandDataset):
@@ -48,7 +71,7 @@ def build_loaders(config):
 
     val_loader = None
     if config.val_datasets:
-        ds = dataset_for(config.val_datasets[0])
+        ds = dataset_for(config.val_datasets[0], "evaluation", config.val_queries)
         val_loader = BatchLoader(ds, config.val_batch, shuffle=False, drop_last=False,
                                  num_workers=config.num_workers)
     return train_loader, val_loader

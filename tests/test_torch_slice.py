@@ -159,7 +159,11 @@ def test_port_imports_no_jax():
         "       'hifihr_tpu_torch.data.base', 'hifihr_tpu_torch.data.synthetic',\n"
         "       'hifihr_tpu_torch.data.pipeline', 'hifihr_tpu_torch.training.metrics',\n"
         "       'hifihr_tpu_torch.training.checkpoint', 'hifihr_tpu_torch.training.submission',\n"
-        "       'hifihr_tpu_torch.training.loop', 'hifihr_tpu_torch.train'}\n"
+        "       'hifihr_tpu_torch.training.loop', 'hifihr_tpu_torch.train',\n"
+        "       'hifihr_tpu_torch.geometry.crops', 'hifihr_tpu_torch.data.native',\n"
+        "       'hifihr_tpu_torch.data.cache', 'hifihr_tpu_torch.data.freihand',\n"
+        "       'hifihr_tpu_torch.data.rhd', 'hifihr_tpu_torch.data.ho3d',\n"
+        "       'hifihr_tpu_torch.data.dart', 'hifihr_tpu_torch.data.freihand_tree'}\n"
         "assert new <= set(mods) and len(mods) >= 40, mods\n"
         "print(len(mods))\n"
     )

@@ -54,6 +54,8 @@ from hifihr_tpu_torch.models.hifihr import HiFiHR
 from hifihr_tpu_torch.training.loop import Trainer
 from hifihr_tpu_torch.training.train_state import create_train_state
 from torch_port_helpers import jax_msaa_select_op_by_op, numpy_tree
+from tests.test_ho3d import ho3d_root  # noqa: F401 - fixture
+from tests.test_real_loaders import dart_root, rhd_root  # noqa: F401 - fixtures
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 S, B, N_TRAIN, N_VAL = 32, 8, 16, 12
@@ -228,10 +230,15 @@ def test_imagenet_warm_start_matches_the_jax_merge(runs, tmp_path):
     assert changed == 5
 
 
-def test_entry_trains_and_evaluates_smoke_synthetic(tmp_path):
+def test_entry_trains_and_evaluates_smoke_synthetic(tmp_path, rhd_root, ho3d_root, dart_root):
     """`python -m hifihr_tpu_torch.train --config_json
     configs/smoke_synthetic.json --device cpu`, its out dir moved into
-    tmp_path: one epoch, a checkpoint, an eval; then --mode evaluation."""
+    tmp_path: one epoch, a checkpoint, an eval; then --mode evaluation.
+    A config naming RHD, HO-3D or DART trains on that dataset's loader,
+    read from its path (the JAX tests' fixture trees)."""
+    from hifihr_tpu_torch.data.dart import DARTset
+    from hifihr_tpu_torch.data.ho3d import HO3D
+    from hifihr_tpu_torch.data.rhd import RHD
     from hifihr_tpu_torch.train import build_loaders, main
 
     with open(os.path.join(ROOT, "configs", "smoke_synthetic.json")) as f:
@@ -251,6 +258,8 @@ def test_entry_trains_and_evaluates_smoke_synthetic(tmp_path):
         assert "config: Config(" in f.read()
     result = main(["--config_json", cfg_path, "--device", "cpu", "--mode", "evaluation"])
     assert result["pa_mpjpe_cm"] == pytest.approx(ev[0]["pa_mpjpe_cm"], rel=0.5)
-    for name in ("RHD", "HO3D", "Dart"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_loaders(Config(**dict(CFG, train_datasets=(name,))))
+    paths = dict(rhd_base_path=rhd_root, ho3d_base_path=ho3d_root[0], dart_base_path=dart_root)
+    for name, cls in (("RHD", RHD), ("HO3D", HO3D), ("Dart", DARTset)):
+        train_loader, _ = build_loaders(Config(**dict(CFG, train_datasets=(name,), train_batch=1, **paths)))
+        assert type(train_loader.dataset) is cls and train_loader.dataset.name == name
+        assert np.isfinite(next(iter(train_loader))["joints"]).all()
