@@ -25,7 +25,7 @@ over a few eval steps and a few train steps of every cell. Phases:
      224^2, bf16 encoder, seeded random weights): K1 and K2 launched, the
      outputs finite and the silhouette non-empty; the same step in fp32 on
      the card against the plain versions on the CPU on two images; the
-     median step time and images/s over 15 steps (CUDA events)
+     median step time and images/s over STEPS (8) steps (CUDA events)
   7. the flagship train step (the same model and batch, the bench losses,
      backward through the render, Adam): K1 (each of its three launches),
      K2 and K3 launched, the 15 loss terms and the total finite and the
@@ -36,7 +36,7 @@ over a few eval steps and a few train steps of every cell. Phases:
      within 1e-4, each gradient within 1e-3 relative L2; the CPU step
      shades the card's face choice, and its own choice is held at 99.5% of
      pixels or more, as in phases 13 and 14), the median step
-     time and images/s over 15 steps, and the peak memory; then K1 and K3
+     time and images/s over STEPS (8) steps, and the peak memory; then K1 and K3
      on the step's own inputs, captured at its first step (the seeded
      init's hand) and at a step after the timed ones (the hand the updates
      have grown): K1 exactly equal to its plain version and K3 within its
@@ -55,7 +55,7 @@ over a few eval steps and a few train steps of every cell. Phases:
      cell of bench.py:276-278): K4 launched once per step (its three
      launches counted by the C route), the outputs
      finite and the silhouette non-empty, the median step time and images/s
-     over 15 steps; the fp32 SSAA eval step on the card against the CPU in
+     over STEPS (8) steps; the fp32 SSAA eval step on the card against the CPU in
      the train-slice test's configuration (res18, 32 px, 8 images)
  10. the SSAA train step (the same model and batch of 8): the checks of
      phase 7, with K4, K2 and K3 launched, the card-against-CPU step in the
@@ -173,6 +173,56 @@ over a few eval steps and a few train steps of every cell. Phases:
      cached), images/s and the prefetch wait per epoch, each eval's
      seconds, and device busy ms and launches per Trainer train step
 
+ 19. mano_new (the YTBHand baseline), configs/FreiHAND/fully_superv_freihand_mano_new.json
+     loaded by Config.from_json: the eval step at its val_batch (16) and
+     the train step at its train_batch (64), 224^2, on the flagship batch
+     with the config's keys (images, Ks, root_xyz, joints, scales). No TPU
+     kernel runs on this path: every kernel's count stays 0. Checks: the
+     outputs finite, the encoder's convs in fp32 (the shipped config says
+     bfloat16; JAX builds this encoder in fp32), the 2 terms finite and
+     not skipped, the parameters changed, a step under
+     set_sync_debug_mode("error"); the fp32 steps on the card against the
+     CPU at the slice test's size (res50, 32 px, 8 images): eval joints and
+     verts 1e-5 m, j2d 1e-3 px; train terms 1e-4, the heads' gradients
+     1e-3 relative L2, the encoder's 1e-3 or 20x the CPU's own movement
+     under one ulp of input (ResNet-50's backward at random init is ill
+     conditioned, tests/test_torch_mano_new.py), 5e-2 at most
+ 20. mano_new through the entry: hifihr_tpu_torch.train.main on the
+     shipped config reading phase 18's FreiHAND-format tree, with only the
+     paths, controlled_exp/controlled_size 640 (10 steps of 64),
+     total_epochs 1 and save_interval 1 moved: the terms finite, none
+     skipped, the eval of the tree's 3,960 frames finished and finite, no
+     TPU kernel launched; images/s per epoch and the eval's seconds
+ 21. NIMBLE's per-fragment UV render (nimble_corner_tex=False, MSAA): the
+     eval and train steps at batch 64, 224^2, with the checks of phases 12
+     and 13 (the face choice held at 99.5% of pixels, the CPU shading the
+     card's), K1, K2 and K3 counted per step (the texture quad's fetch
+     among K2's launches, its backward among K3's), and K2 and K3 on the
+     texture quad's real forward and backward inputs of one train step
+     ((64, 65536, 28) x (64, 50176)): K2 bit-equal, K3 within its bound,
+     beside the plain versions, indexing, index_add_ and grid_sample
+     (bilinear, border, align_corners=True on 2 uv - 1, the library call
+     for the whole sample, held within 1e-5 of sample_texture)
+ 22. NIMBLE under SSAA (aa_mode="ssaa", batch 8, 672^2, the SSAA cell's
+     size): the checks of phases 9 and 10, the CPU step shading the card's
+     K4 choice, and K4 held bit-equal to its plain version and timed on the
+     step's own NIMBLE hands at step 1 and after the timed steps (beside
+     phase 8's tori); K2 and K3 on its texture quad, (8, 65536, 28) x
+     (8, 451584)
+ 23. test-time MANO fitting: configs/smoke_render.json with test_refinement
+     through the entry's evaluation (--mode evaluation) on the synthetic
+     stand-in: pa_mpjpe_cm and pa_mpjpe_refined_cm finite; one batch's fit
+     (151 Adam steps, batch 16) on the card against the CPU (the refined
+     joints within 1e-4 m), its ms per fit, device busy ms, launches per
+     fit step and host syncs per fit (none)
+
+The `{"kernels": [...]}` line also holds every kernel's launches per step
+of the new cells (`launches_mano_new_*`, `launches_nimble_uv_*`,
+`launches_nimble_ssaa_*`, `launches_trainer_mano_new_*`), K4's readings on
+NIMBLE's SSAA hands (`nimble_ssaa_hand`), K1's and K3's on the UV steps'
+inputs, and K2's and K3's on the texture quads (`texture_quad_nimble_uv`,
+`texture_quad_nimble_ssaa`).
+
 Every step phase prints its median, images/s, device busy ms and launches
 per step (torch.profiler over two steps), peak memory and its seconds; the
 train steps also the TF32 mode they ran in (off: make_train_step sets full
@@ -209,7 +259,7 @@ K1_OPS_PER_PAIR = 60  # 9 subsamples x (3 edge steps + 2 min + 1 compare) + dept
 # 5 for the depth, 1 depth test (csrc/raster_face.cu's inner loop)
 K4_OPS_PER_PAIR = 30
 SSAA_B, AA = 8, 3  # the SSAA cell: bench.py:278 times it at batch 8
-STEPS = 15
+STEPS = 8  # timed steps of each cell
 # the bench losses (bench.py:46-49); texture_con and segms_gt in the batch
 # add both photometric triples
 LOSSES = ("joint_3d", "joint_2d", "vert_3d", "mscale", "mshape", "mpose", "sil", "iou", "bone_direc")
@@ -600,11 +650,19 @@ def k3_yardsticks(g: torch.Tensor, idx: torch.Tensor, n_rows: int) -> tuple:
             time_ms(lambda: torch.zeros(n * n_rows + 1, row, device=g.device).index_add_(0, dst, g2), reps=20))
 
 
+def k2_bound(table: torch.Tensor, idx: torch.Tensor) -> tuple:
+    """(the distinct rows idx reads, K2's bound): the bytes the work needs
+    are those rows of the table, idx and the output, each once."""
+    b_idx = torch.arange(table.shape[0], device=idx.device)[:, None]
+    rows = torch.unique((idx.long() + b_idx * table.shape[1])[idx >= 0]).numel()
+    return rows, bound((rows * table.shape[2] + idx.numel() + idx.numel() * table.shape[2]) * 4)
+
+
 def k2_reading(table: torch.Tensor, idx: torch.Tensor, what: str, index_select: torch.Tensor | None = None) -> dict:
     """K2 bit-equal to its plain version on one input, then its time, the
     plain version's, one PyTorch indexing call's (`table[b, idx]`, zero rows
     at -1), `index_select` where the index is one list for every image, and
-    the bound (table and idx read once, the output written once)."""
+    the bound (`k2_bound`: the rows idx reads, idx, the output)."""
     from hifihr_tpu_torch.render import gather as k2
 
     out = k2.gather_rows(table, idx)
@@ -612,9 +670,8 @@ def k2_reading(table: torch.Tensor, idx: torch.Tensor, what: str, index_select: 
     torch.cuda.synchronize()
     check(torch.equal(out.view(torch.int32), ref.view(torch.int32)), f"K2 bit-equal to the plain version on {what}")
     b_idx = torch.arange(table.shape[0], device=idx.device)[:, None]
-    nbytes = (table.numel() + idx.numel() + out.numel()) * 4
-    bound_ms, bound_by = bound(nbytes)
-    r = {"input": what, "table": list(table.shape), "idx": list(idx.shape), "max_abs_err": 0.0,
+    rows, (bound_ms, bound_by) = k2_bound(table, idx)
+    r = {"input": what, "table": list(table.shape), "idx": list(idx.shape), "rows_read": rows, "max_abs_err": 0.0,
          "ms": time_ms(lambda: k2.gather_rows(table, idx), reps=50),
          "plain_ms": time_ms(lambda: k2.gather_rows_plain(table, idx), reps=20),
          "library_ms": time_ms(lambda: table[b_idx, idx.clamp(min=0).long()] * (idx >= 0)[..., None], reps=20),
@@ -690,7 +747,7 @@ def phase_kernels(batch: dict) -> list:
     k2_ms = time_ms(lambda: k2.gather_rows(table, idx), reps=50)
     k2_plain_ms = time_ms(lambda: k2.gather_rows_plain(table, idx), reps=20)
     lib_ms = time_ms(lambda: table[b_idx, idx.clamp(min=0).long()] * (idx >= 0)[..., None], reps=20)
-    k2_bound, k2_by = bound(table.numel() * 4 + idx.numel() * 4 + out.numel() * 4)
+    _, (k2_bound_ms, k2_by) = k2_bound(table, idx)
 
     # K3 on the render's real backward input
     n_faces, row = table.shape[1], table.shape[2]
@@ -710,7 +767,7 @@ def phase_kernels(batch: dict) -> list:
          "eval_hand": k1_eval},
         {"name": "K2 gather_rows", "route": "cuda", "source": "hifihr_tpu_torch/csrc/gather_rows.cu",
          "replaces": "hifihr_tpu/render/gather_mxu.py:64", "launches": None,
-         "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
+         "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound_ms,
          "bound_by": k2_by, "library_ms": lib_ms},
         {"name": "K3 scatter_rows", "route": "cuda", "source": "hifihr_tpu_torch/csrc/scatter_rows.cu",
          "replaces": "hifihr_tpu/render/gather_mxu.py:87", "launches": None,
@@ -1146,9 +1203,9 @@ def slice_batch(n: int = 8, size: int = 32) -> dict:
 def one_train_step(cfg, batch: dict, device: str, faces: tuple | None = None):
     """One train step of a freshly built model (seed 0) on `device`: the
     loss dict as floats, every parameter's gradient on the host, and the
-    step's MSAA face choice (face_id, coverage) on the host. With `faces`
-    (another run's choice) the step renders that choice, and its own is
-    returned."""
+    step's face choice on the host, MSAA's (face_id, coverage) or NIMBLE's
+    SSAA (face_id, zbuf). With `faces` (another run's choice) the step
+    renders that choice, and its own is returned."""
     from hifihr_tpu_torch.losses.stack import LossComputer
     from hifihr_tpu_torch.models.hifihr import build_model
     from hifihr_tpu_torch.training.steps import make_sched, make_train_step
@@ -1156,15 +1213,18 @@ def one_train_step(cfg, batch: dict, device: str, faces: tuple | None = None):
 
     model = build_model(cfg, device=device, seed=0)
     own = []
-    if cfg.aa_mode == "msaa":
-        select = model.renderer.select_faces
+    # the MSAA face choice, and NIMBLE's SSAA one (the vertices' last bits
+    # move a pixel's nearest face at its 11,926 faces)
+    name = {"msaa": "select_faces", "ssaa": "select_faces_ssaa" if cfg.hand_model == "nimble" else None}[cfg.aa_mode]
+    if cfg.render and name:
+        select = getattr(model.renderer, name)
 
         def recorded(verts_cam, K):
-            fid, cov = select(verts_cam, K)
-            own.append((fid.cpu(), cov.cpu()))
-            return (fid, cov) if faces is None else (faces[0].to(device), faces[1].to(device))
+            fid, other = select(verts_cam, K)
+            own.append((fid.cpu(), other.cpu()))
+            return (fid, other) if faces is None else (faces[0].to(device), faces[1].to(device))
 
-        model.renderer.select_faces = recorded
+        setattr(model.renderer, name, recorded)
     state = create_train_state(model, cfg)
     step = make_train_step(model, LossComputer(cfg), "FreiHand", cfg)
     _, d = step(state, {k: v.to(device) for k, v in batch.items()}, make_sched(cfg, 0, device=device))
@@ -1696,6 +1756,11 @@ def phase_trainer(cell_launches: dict) -> dict:
 # 3,960 evaluation frames and FREI_TRAIN training frames (controlled_size, 10
 # steps of 48), FREI_DISTINCT of them encoded and the rest hard links
 FREI_TRAIN, FREI_EVAL, FREI_DISTINCT = 480, 3960, 48
+# phase 20 (mano_new through the entry) reads the same tree: 10 steps of 64
+MANO_NEW_TRAIN = 640
+# the tree's training frames: the phases read its first FREI_TRAIN and
+# MANO_NEW_TRAIN (FreiHAND's loader indexes frames below its 32,560)
+FREI_TREE_TRAIN = max(FREI_TRAIN, MANO_NEW_TRAIN)
 # the warp check: the native warp's float output against the numpy path's
 WARP_TOL = 1 / 255 + 1e-6
 # the decode check against the frames' numpy source pixels (Pillow's
@@ -1823,8 +1888,8 @@ def phase_real_data(cell_launches: dict) -> dict:
     with tempfile.TemporaryDirectory(prefix="hifihr_freihand_") as tmp:
         tree = os.path.join(tmp, "freihand")
         t = time.perf_counter()
-        src = write_freihand_tree(tree, FREI_TRAIN, FREI_EVAL, distinct=FREI_DISTINCT, seed=0)
-        print(f"FreiHAND-format tree: {FREI_TRAIN} training frames x 4 versions, {FREI_EVAL} evaluation "
+        src = write_freihand_tree(tree, FREI_TREE_TRAIN, FREI_EVAL, distinct=FREI_DISTINCT, seed=0)
+        print(f"FreiHAND-format tree: {FREI_TREE_TRAIN} training frames x 4 versions, {FREI_EVAL} evaluation "
               f"frames, {FREI_DISTINCT} encoded (Pillow, quality 92), written in {time.perf_counter() - t:.2f} s")
         built = native.available()
         check(os.path.dirname(built["warp"]) == native.BUILD_DIR, f"the native warp library is loaded: {built}")
@@ -1881,8 +1946,343 @@ def phase_real_data(cell_launches: dict) -> dict:
         numbers["eval_seconds"] = [r["seconds"] for r in run["evals"].values()]
         numbers["eval"] = evals[-1]
         print("trainer (paper, FreiHAND tree): " + json.dumps(numbers))
-    print(f"phase real data: {time.perf_counter() - t0:.1f} s")
+        print(f"phase real data: {time.perf_counter() - t0:.1f} s")
+        per_step.update(phase_mano_new_entry(tmp, tree))
     return per_step
+
+
+# phases 19-23: the model variants of the last slice. mano_new (the YTBHand
+# baseline) as it ships, at its own val and train batches
+MANO_NEW_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs", "FreiHAND",
+                               "fully_superv_freihand_mano_new.json")
+# its batch keys: the config's train queries (images, Ks, joints, scales) and root_xyz
+MANO_NEW_KEYS = ("imgs", "Ks", "root_xyz", "joints", "scales")
+MANO_NEW_HEADS = ("theta_fc0.weight", "theta_fc0.bias", "theta_fc1.weight", "theta_fc1.bias", "encoder.mmpool.p")
+# the encoder's gradients on the card against the CPU: within 1e-3, or 20x
+# the CPU's own movement under one ulp of input where that is larger (ResNet-50's
+# train-mode backward at random init is ill conditioned: tests/test_torch_mano_new.py),
+# and MANO_NEW_GRAD_CAP at most
+MANO_NEW_GRAD_CAP = 5e-2
+
+
+def encoder_conv_dtypes(model, run) -> set:
+    """The output dtypes of every encoder conv in one call of `run`."""
+    seen = set()
+    hooks = [m.register_forward_hook(lambda m, i, o: seen.add(o.dtype))
+             for m in model.encoder.modules() if isinstance(m, torch.nn.Conv2d)]
+    try:
+        run()
+    finally:
+        for h in hooks:
+            h.remove()
+    return seen
+
+
+def phase_mano_new(batch: dict, profile: bool) -> dict:
+    """Phase 19: the mano_new eval step at the config's val_batch (16) and
+    its train step at its train_batch (64), 224^2, on the flagship batch
+    with the config's keys. Returns the launches of both (none: no TPU
+    kernel runs on this path)."""
+    from hifihr_tpu_torch.config import Config
+    from hifihr_tpu_torch.losses.stack import LossComputer
+    from hifihr_tpu_torch.models.hifihr import build_model
+    from hifihr_tpu_torch.training.steps import make_eval_step, make_sched, make_train_step
+    from hifihr_tpu_torch.training.train_state import create_train_state
+
+    t0 = time.perf_counter()
+    cfg = Config.from_json(MANO_NEW_CONFIG)
+    check((cfg.hand_model, cfg.render, cfg.image_size, cfg.val_batch, cfg.train_batch) == ("mano_new", False, S, 16, B),
+          f"the shipped mano_new config: {cfg.hand_model}, render {cfg.render}, {cfg.val_batch}, {cfg.train_batch}")
+    eval_batch = {k: batch[k][:cfg.val_batch] for k in MANO_NEW_KEYS}
+    train_batch = {k: batch[k][:cfg.train_batch] for k in MANO_NEW_KEYS}
+    model = build_model(cfg, device="cuda", seed=0)
+    step = make_eval_step(model, "FreiHand", cfg)
+    step(eval_batch)
+    torch.cuda.synchronize()
+    reset_launches()
+    out = step(eval_batch)
+    torch.cuda.synchronize()
+    launches = {"mano_new_eval_step": read_launches()}
+    check(not any(launches["mano_new_eval_step"].values()), f"no TPU kernel on the mano_new eval path: {launches}")
+    n = cfg.val_batch
+    shapes = {"joints": (n, 21, 3), "mano_verts": (n, 778, 3), "j2d": (n, 21, 2), "pose_params": (n, 48),
+              "shape_params": (n, 10)}
+    check({k: tuple(v.shape) for k, v in out.items()} == shapes, f"mano_new eval outputs {list(out)}")
+    check(all(bool(torch.isfinite(v).all()) for v in out.values()), "mano_new eval outputs finite")
+    dtypes = encoder_conv_dtypes(model, lambda: step(eval_batch))
+    check(dtypes == {torch.float32}, f"the mano_new encoder runs in fp32 under compute_dtype "
+                                     f"{cfg.compute_dtype}: {dtypes}")
+    print(f"mano_new eval step: outputs finite, no TPU kernel on this path ({launches['mano_new_eval_step']}), "
+          f"encoder convs in {sorted(map(str, dtypes))}")
+
+    # fp32 on the card against the CPU at the slice test's size
+    small_cfg = Config.from_json(MANO_NEW_CONFIG, image_size=32)
+    small = {k: v for k, v in slice_batch().items() if k in MANO_NEW_KEYS}
+    gpu32 = make_eval_step(build_model(small_cfg, device="cuda", seed=0), "FreiHand", small_cfg)(
+        {k: v.cuda() for k, v in small.items()})
+    cpu32 = make_eval_step(build_model(small_cfg, device="cpu", seed=0), "FreiHand", small_cfg)(small)
+    diffs = {k: (gpu32[k].cpu() - cpu32[k]).abs().max().item() for k in shapes}
+    print(f"fp32 mano_new eval step, card vs CPU (res50, 32 px, 8 images): max abs {diffs}")
+    check(diffs["joints"] < 1e-5 and diffs["mano_verts"] < 1e-5 and diffs["j2d"] < 1e-3,
+          "joints and verts within 1e-5 m, j2d within 1e-3 px")
+    torch.cuda.reset_peak_memory_stats()
+    numbers = time_steps(lambda: step(eval_batch), n)
+    numbers["device_busy_ms"], numbers["launches_per_step"] = device_profile(lambda: step(eval_batch))
+    print("mano_new eval step: " + json.dumps(numbers))
+
+    state = create_train_state(model, cfg)
+    tstep = make_train_step(model, LossComputer(cfg), "FreiHand", cfg)
+    sched = make_sched(cfg, 0)
+    for _ in range(2):
+        state, d = tstep(state, train_batch, sched)
+    torch.cuda.synchronize()
+    before = state.optimizer.flat.clone()
+    reset_launches()
+    state, d = tstep(state, train_batch, sched)
+    torch.cuda.synchronize()
+    launches["mano_new_train_step"] = read_launches()
+    check(not any(launches["mano_new_train_step"].values()), f"no TPU kernel on the mano_new train path: {launches}")
+    losses = {k: v.item() for k, v in d.items()}
+    print("mano_new train step losses: " + json.dumps(losses))
+    check(set(losses) == set(cfg.losses) | {"total", "skipped"}, f"the 2 terms, total and skipped: {sorted(losses)}")
+    check(all(np.isfinite(v) for v in losses.values()) and losses["skipped"] == 0.0, "terms finite, not skipped")
+    changed = (state.optimizer.flat != before).float().mean().item()
+    check(changed > 0.5, f"the parameters changed ({changed})")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, d = tstep(state, train_batch, sched)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    print("mano_new train step: one step ran under set_sync_debug_mode('error'), no host sync")
+
+    gl, gg, _ = one_train_step(small_cfg, small, "cuda")
+    cl, cg, _ = one_train_step(small_cfg, small, "cpu")
+    _, ug, _ = one_train_step(small_cfg, dict(small, imgs=torch.nextafter(small["imgs"], torch.tensor(2.0))), "cpu")
+    term_err = {k: abs(gl[k] - cl[k]) / max(abs(cl[k]), 1e-30) for k in cl if k != "skipped"}
+    worst, heads = [], {}
+    for name, ref in cg.items():
+        nr = ref.norm().item()
+        if nr == 0:  # the shape head: use_mean_shape zeroes beta
+            check(gg[name].norm().item() == 0, f"{name}'s gradient zero on the card too")
+            continue
+        err = (gg[name] - ref).norm().item() / nr
+        if name in MANO_NEW_HEADS:
+            heads[name] = err
+            continue
+        tol = min(MANO_NEW_GRAD_CAP, max(1e-3, 20 * (ug[name] - ref).norm().item() / nr))
+        worst.append((err / tol, name, err, tol))
+    worst.sort(reverse=True)
+    print(f"fp32 mano_new train step (res50, 32 px, 8 images), card vs CPU: loss term rel err {term_err}, heads' "
+          f"gradients rel L2 {heads}, encoder worst (err / tol, name, err, tol) {worst[:3]}")
+    check(max(term_err.values()) <= 1e-4, "loss terms within 1e-4 of the CPU plain path")
+    check(max(heads.values()) <= 1e-3, "the heads' gradients within 1e-3 relative L2 of the CPU's")
+    check(worst[0][0] < 1.0, "the encoder's gradients within 20x the CPU's own one-ulp movement")
+
+    torch.cuda.reset_peak_memory_stats()
+    numbers = time_steps(lambda: tstep(state, train_batch, sched), cfg.train_batch)
+    numbers["device_busy_ms"], numbers["launches_per_step"] = device_profile(lambda: tstep(state, train_batch, sched))
+    numbers["tf32"] = {"cudnn": torch.backends.cudnn.allow_tf32, "matmul": torch.backends.cuda.matmul.allow_tf32}
+    print("mano_new train step: " + json.dumps(numbers))
+    if profile:
+        profile_steps(lambda b: tstep(state, b, sched), train_batch)
+    print(f"phase mano_new: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def phase_mano_new_entry(tmp: str, tree: str) -> dict:
+    """Phase 20: `python -m hifihr_tpu_torch.train` in-process on the
+    shipped mano_new config, reading the tree of phase 18; only the paths,
+    controlled_size (with controlled_exp) MANO_NEW_TRAIN (10 steps of 64),
+    total_epochs 1 and save_interval 1 moved; an eval of the tree's 3,960
+    evaluation frames after the epoch. Returns the launches per Trainer
+    step."""
+    from hifihr_tpu_torch import train as entry
+
+    t0 = time.perf_counter()
+    with open(MANO_NEW_CONFIG) as f:
+        raw = json.load(f)
+    out = os.path.join(tmp, "mano_new_out")
+    raw.update(freihand_base_path=tree, base_out_path=out, controlled_exp=True, controlled_size=MANO_NEW_TRAIN,
+               total_epochs=1, save_interval=1)
+    path = os.path.join(tmp, "mano_new_tree.json")
+    with open(path, "w") as f:
+        json.dump(raw, f)
+    subs = _Substitutions()
+    logging.getLogger().addHandler(subs)
+    try:
+        with trainer_probes({}) as run:
+            entry.main(["--config_json", path])
+    finally:
+        logging.getLogger().removeHandler(subs)
+    check(not subs.messages, f"no sample substituted: {subs.messages[:3]}")
+    log = _read_log(out)
+    epochs = [r for r in log if "train_loss" in r]
+    check([r["epoch"] for r in epochs] == [0] and epochs[0]["skipped_steps"] == 0, f"one epoch, none skipped: {epochs}")
+    steps = [r for r in log if "step" in r]
+    check(steps and all(np.isfinite(v) for r in steps for k, v in r.items() if isinstance(v, float)),
+          "every logged term finite")
+    # the tree has no evaluation_verts.json, so no PA-MPJPE (phase 18), and
+    # mano_new renders nothing: the record says the eval ran to its end
+    evals = [r["eval"] for r in log if "eval" in r]
+    check(len(evals) == 1 and all(np.isfinite(v) for v in evals[0].values() if isinstance(v, float)),
+          f"the eval finished, finite: {evals}")
+    check([r["batches"] for r in run["evals"].values()] == [-(-FREI_EVAL // 16)],
+          f"the eval ran over the tree's {FREI_EVAL} frames: {run['evals']}")
+    trainer = run["trainer"]
+    check(len(trainer.val_loader.dataset) == FREI_EVAL and len(trainer.train_loader) == MANO_NEW_TRAIN // 64,
+          "the eval covers FreiHAND's 3,960 frames and the epoch is 10 steps of 64")
+    per_step = {}
+    for key, runs in (("trainer_mano_new_train_step", run["epochs"]), ("trainer_mano_new_eval_step", run["evals"])):
+        counts = [r["launches"] for r in runs.values()]
+        check(not any(v for c in counts for v in c.values()), f"no TPU kernel in the {key}: {counts}")
+        per_step[key] = counts[0]
+    numbers = {"images_per_sec": epochs[0]["images_per_sec"], "train_loss": epochs[0]["train_loss"],
+               "epoch_seconds": run["epochs"][0]["seconds"],
+               "prefetch_wait_share": run["epochs"][0]["prefetch_wait_s"] / run["epochs"][0]["seconds"],
+               "eval_seconds": [r["seconds"] for r in run["evals"].values()], "eval": evals[0]}
+    print("trainer (mano_new, FreiHAND tree): " + json.dumps(numbers))
+    print(f"phase mano_new entry: {time.perf_counter() - t0:.1f} s")
+    return per_step
+
+
+def texture_quad(cfg, batch: dict, what: str) -> dict:
+    """K2 and K3 on the texture quad fetch of `cfg`'s UV render (the
+    per-pixel fetch of render/texture.py::sample_texture), on the real
+    inputs of one train step of a fresh model: K2 bit-equal and K3 within
+    its bound, their times, the plain versions', the bounds, the library's
+    indexing and index_add_, and torch's grid_sample (bilinear, border,
+    align_corners=True on 2 uv - 1) as the library call for the whole
+    sample, with its difference from sample_texture."""
+    import torch.nn.functional as Fn
+
+    from hifihr_tpu_torch.losses.stack import LossComputer
+    from hifihr_tpu_torch.models.hifihr import build_model
+    from hifihr_tpu_torch.render import renderer as rmod
+    from hifihr_tpu_torch.render.texture import sample_texture
+    from hifihr_tpu_torch.training.steps import make_sched, make_train_step
+    from hifihr_tpu_torch.training.train_state import create_train_state
+
+    model = build_model(cfg, device="cuda", seed=0)
+    state = create_train_state(model, cfg)
+    step = make_train_step(model, LossComputer(cfg), "FreiHand", cfg)
+    sampled = []
+    orig = rmod.sample_texture
+
+    def record(tex, uv):
+        sampled.append((tex.detach().clone(), uv.detach().clone()))
+        return orig(tex, uv)
+
+    rmod.sample_texture = record
+    try:
+        with captured_kernel_inputs() as got:
+            step(state, batch, make_sched(cfg, 0))
+    finally:
+        rmod.sample_texture = orig
+    tex, uv = sampled[0]
+    n, ht, wt, c = tex.shape
+    k2_in = [(t, i) for t, i in got["K2"] if t.shape[1] == ht * wt and t.shape[2] == 4 * c]
+    k3_in = [(g, i, r) for g, i, r in got["K3"] if r == ht * wt and g.shape[2] == 4 * c]
+    check(len(k2_in) >= 1 and len(k3_in) == 1, f"the quad's K2 and K3 launches in {what}'s train step: "
+                                               f"{len(k2_in)}, {len(k3_in)}")
+    table, idx = k2_in[0]
+    out = {"K2": k2_reading(table, idx, f"the texture quad of {what}")}
+    g, gidx, rows = k3_in[0]
+    out["K3"] = k3_launch(g, gidx, rows, f"the texture quad's backward in {what}")
+    out["K3"]["plain_ms"], out["K3"]["library_ms"] = k3_yardsticks(g, gidx, rows)
+
+    def grid():
+        return Fn.grid_sample(tex.permute(0, 3, 1, 2), 2.0 * uv - 1.0, mode="bilinear", padding_mode="border",
+                              align_corners=True).permute(0, 2, 3, 1)
+
+    ours = sample_texture(tex, uv)
+    diff = (grid() - ours).abs().max().item()
+    check(diff <= 1e-5, f"grid_sample computes sample_texture's function within 1e-5 on {what}: {diff}")
+    out["sample"] = {"texture": list(tex.shape), "uv": list(uv.shape), "grid_sample_max_abs_diff": diff,
+                     "sample_texture_ms": time_ms(lambda: sample_texture(tex, uv), reps=20),
+                     "grid_sample_ms": time_ms(grid, reps=20)}
+    print(f"texture quad on {what}: " + json.dumps(out["sample"]))
+    return out
+
+
+# phase 23: test-time MANO fitting in the Trainer's eval
+FIT_JOINTS_TOL = 1e-4  # m: the refined joints, card against CPU (tests/test_torch_fitting.py)
+
+
+def phase_fitting() -> dict:
+    """Phase 23: configs/smoke_render.json with test_refinement through the
+    entry's evaluation (`--mode evaluation`) on the synthetic stand-in,
+    then one batch's fit on the card against the CPU, its time, its
+    launches per step and its host syncs."""
+    import tempfile
+
+    from hifihr_tpu_torch import train as entry
+    from hifihr_tpu_torch.hand.mano import ManoLayer, regress_joints_frei
+    from hifihr_tpu_torch.training import fitting, loop
+
+    t0 = time.perf_counter()
+    first = []
+    orig = loop.Trainer._refine
+
+    def refine(self, out, batch):
+        if not first:
+            first.append({k: out[k].clone() for k in ("pose_params", "shape_params", "trans", "scale", "j2d")}
+                         | {k: batch[k].clone() for k in ("Ks", "root_xyz", "j2d_gt") if k in batch})
+        return orig(self, out, batch)
+
+    loop.Trainer._refine = refine
+    try:
+        with tempfile.TemporaryDirectory(prefix="hifihr_fit_") as tmp, trainer_probes({}) as run:
+            result = entry.main(["--config_json", _smoke_render_copy(tmp, "fit", test_refinement=True),
+                                 "--mode", "evaluation"])
+    finally:
+        loop.Trainer._refine = orig
+    check(all(np.isfinite(result.get(k, np.nan)) for k in ("pa_mpjpe_cm", "pa_mpjpe_refined_cm")),
+          f"pa_mpjpe_cm and pa_mpjpe_refined_cm finite: {result}")
+    ev = run["evals"][-1]
+    print(f"fitting eval: pa_mpjpe_cm {result['pa_mpjpe_cm']}, pa_mpjpe_refined_cm {result['pa_mpjpe_refined_cm']}, "
+          f"{ev['batches']} batches in {ev['seconds']:.2f} s, launches {ev['launches']}")
+
+    x = first[0]
+    target = x.get("j2d_gt", x["j2d"])
+    args = (x["pose_params"], x["shape_params"], x["trans"], x["scale"], x["Ks"][:, :3, :3], target,
+            torch.ones_like(target[..., :1]), x["root_xyz"])
+    mano, cpu_mano = ManoLayer(ncomps=45), ManoLayer(ncomps=45)
+    fit_gpu = fitting.make_fitting_fn(mano, device="cuda")
+    fit_cpu = fitting.make_fitting_fn(cpu_mano, device="cpu")
+    pg = fit_gpu(*args)
+    pc = fit_cpu(*(a.cpu() for a in args))
+    diffs = {k: (pg[k].cpu() - pc[k]).abs().max().item() for k in fitting.PARAMS}
+
+    def joints(p, layer):
+        with torch.no_grad():
+            v = layer(p["pose"], p["betas"]).verts
+            j = regress_joints_frei(v, layer.J_regressor)
+            return j - j[:, 9:10]
+
+    jdiff = (joints(pg, mano).cpu() - joints(pc, cpu_mano)).abs().max().item()
+    moved = max((pg[k] - a).abs().max().item() for k, a in zip(fitting.PARAMS, args))
+    print(f"fit of one batch ({tuple(x['pose_params'].shape)}), card vs CPU: params max abs {diffs}, refined joints "
+          f"max abs {jdiff} m; the fit moved the parameters by up to {moved}")
+    check(jdiff <= FIT_JOINTS_TOL, f"the refined joints within {FIT_JOINTS_TOL} m of the CPU's")
+    ms = time_ms(lambda: fit_gpu(*args), reps=1, groups=3)
+    busy, launches = device_profile(lambda: fit_gpu(*args), reps=1)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fit_gpu(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [f"{os.path.basename(w.filename)}:{w.lineno}" for w in caught if "called a synchronizing" in str(w.message)]
+    numbers = {"batch": x["pose_params"].shape[0], "steps": fitting.N_STEPS, "ms_per_fit": ms,
+               "device_busy_ms_per_fit": busy, "launches_per_fit_step": launches / fitting.N_STEPS,
+               "host_syncs_per_fit": len(syncs), "syncs": syncs[:5],
+               "eval_seconds": ev["seconds"], "eval_batches": ev["batches"],
+               "pa_mpjpe_cm": result["pa_mpjpe_cm"], "pa_mpjpe_refined_cm": result["pa_mpjpe_refined_cm"]}
+    print("test-time fitting: " + json.dumps(numbers))
+    check(not syncs, f"no host sync inside the fit: {syncs[:5]}")
+    print(f"phase fitting: {time.perf_counter() - t0:.1f} s")
+    return numbers
 
 
 def main() -> int:
@@ -1954,16 +2354,42 @@ def main() -> int:
          paper_batch(batch, paper.train_batch), paper_small + ("the paper config, 32 px, 8 images",), paper_small,
          fired=paper.losses)
 
+    # phase 19: mano_new's steps (no TPU kernel on its path)
+    launches.update(phase_mano_new(batch, args.profile))
+    # phase 21: NIMBLE's per-fragment UV render (MSAA), and K2 and K3 on its texture quad
+    uv_cfg = dataclasses.replace(step_config(hand_model="nimble"), nimble_corner_tex=False)
+    uv_small = small_check(hand_model="nimble", nimble_corner_tex=False)
+    cell("nimble_uv_", "nimble uv msaa", uv_cfg, batch, batch, uv_small, uv_small[:2])
+    quad = {"nimble_uv": texture_quad(uv_cfg, batch, "the NIMBLE UV train step")}
+    # phase 22: NIMBLE under SSAA (K4 at 11,926 faces on NIMBLE's own hands)
+    nimble_ssaa = step_config("ssaa", "nimble")
+    nimble_ssaa_small = small_check(hand_model="nimble", aa_mode="ssaa")
+    cell("nimble_ssaa_", "nimble ssaa", nimble_ssaa, ssaa_batch, ssaa_batch, nimble_ssaa_small,
+         nimble_ssaa_small[:2])
+    quad["nimble_ssaa"] = texture_quad(nimble_ssaa, ssaa_batch, "the NIMBLE SSAA train step")
+
     # phase 17: the Trainer through the entry, on configs/smoke_render.json
     trainer = phase_trainer(launches)
-    # phase 18: the paper config through the entry, from a FreiHAND-format tree
+    # phase 18: the paper config through the entry, from a FreiHAND-format
+    # tree; phase 20: mano_new through the entry from the same tree
     trainer.update(phase_real_data(launches))
+    # phase 23: test-time MANO fitting in the Trainer's eval
+    fitting = phase_fitting()
 
     table[0]["train_hand"] = hands[""]["K1"] + hands["ssaa_"]["K1"] + hands["effb3_"]["K1"]
     table[2]["train_hand"] = hands[""]["K3"] + hands["ssaa_"]["K3"] + hands["effb3_"]["K3"]
     table[3]["train_hand"] = hands["ssaa_"]["K4"]
     nimble["K1"]["train_hand"] = hands["nimble_"]["K1"] + hands["paper_"]["K1"]
     nimble["K3"]["train_hand"] = hands["nimble_"]["K3"] + hands["paper_"]["K3"]
+    # the new cells: K4 on NIMBLE's own SSAA hands, K1 and K3 on the UV steps'
+    # inputs, K2 and K3 on the texture quad
+    table[3]["nimble_ssaa_hand"] = hands["nimble_ssaa_"]["K4"]
+    table[0]["nimble_uv_hand"] = hands["nimble_uv_"]["K1"]
+    table[2]["nimble_uv_hand"] = hands["nimble_uv_"]["K3"]
+    table[2]["nimble_ssaa_hand"] = hands["nimble_ssaa_"]["K3"]
+    for key, q in quad.items():
+        table[1][f"texture_quad_{key}"] = dict(q["K2"], **q["sample"])
+        table[2][f"texture_quad_{key}"] = q["K3"]
     k2_checked = sum(h["K2"] for h in hands.values())
     print(f"K2: {k2_checked} captured launches of the train steps bit-equal to the plain version")
     for k, reading in zip(table, (nimble["K1"], nimble["K2"], nimble["K3"], None)):
@@ -1980,6 +2406,7 @@ def main() -> int:
             k[f"launches_{step_key}"] = counts[name]
         if reading is not None:
             k["nimble"] = reading
+    print("test-time fitting (no TPU kernel): " + json.dumps(fitting))
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -18,7 +18,6 @@ from dataclasses import dataclass
 ENCODERS = ("res18", "res50", "res101", "hr18sv2", "effb3", "none")
 PORTED_ENCODERS = ("res18", "res50", "res101", "effb3")
 HAND_MODELS = ("mano", "nimble", "mano_new")
-PORTED_HAND_MODELS = ("mano", "nimble")
 DATASETS = ("FreiHand", "RHD", "HO3D", "Dart")
 AA_MODES = ("msaa", "ssaa")
 BASE_LOSS_FNS = ("L1", "L2")
@@ -56,8 +55,8 @@ class Config:
     # and shading runs once per pixel; 'ssaa': reference-exact, rasterise
     # and shade at aa_factor x the resolution, then average-pool
     aa_mode: str = "msaa"
-    # NIMBLE's MSAA render samples its appearance at the face corners
-    # (False, per-fragment UV sampling, is not ported)
+    # NIMBLE's MSAA render samples its appearance at the face corners;
+    # False samples the UV maps per fragment (the SSAA render always does)
     nimble_corner_tex: bool = True
     rgb2hm: bool = False
     freeze_hm_estimator: bool = False
@@ -65,9 +64,9 @@ class Config:
     # encoder compute dtype; parameters stay float32
     compute_dtype: str = "bfloat16"
 
-    # data (the real-data loaders and their fields are not ported: a
-    # FreiHAND path that exists, RHD, HO3D and DART raise in
-    # hifihr_tpu_torch/train.py::build_loaders)
+    # data (hifihr_tpu_torch/train.py::build_loaders reads FreiHAND, RHD,
+    # HO3D and DART from these paths; the synthetic stand-in where
+    # FreiHAND's is missing)
     train_datasets: tuple = ("FreiHand",)
     val_datasets: tuple = ("FreiHand",)
     train_queries: tuple = ("trans_images", "trans_Ks", "trans_joints")
@@ -154,6 +153,8 @@ class Config:
     mode: tuple = ("training",)
     is_val: bool = False
     if_test: bool = True
+    # the test-time MANO fit in the Trainer's eval (training/fitting.py);
+    # applied to hand_model "mano" only, as in the JAX package
     test_refinement: bool = False
     save_2d: bool = False
     save_3d: bool = False
@@ -166,22 +167,16 @@ class Config:
             raise NotImplementedError(f"pretrain={self.pretrain!r}: the port has {PORTED_ENCODERS}")
         if self.hand_model not in HAND_MODELS:
             raise ValueError(f"unknown hand_model={self.hand_model!r}; valid: {HAND_MODELS}")
-        if self.hand_model not in PORTED_HAND_MODELS:
-            raise NotImplementedError(f"hand_model={self.hand_model!r}: the port has {PORTED_HAND_MODELS}")
         for d in tuple(self.train_datasets) + tuple(self.val_datasets):
             if d not in DATASETS:
                 raise ValueError(f"unknown dataset {d!r}; valid: {DATASETS}")
         if self.aa_mode not in AA_MODES:
             raise NotImplementedError(f"aa_mode={self.aa_mode!r}: the port has {AA_MODES}")
-        if self.hand_model == "nimble" and self.render and (self.aa_mode != "msaa" or not self.nimble_corner_tex):
-            raise NotImplementedError("NIMBLE renders in the port with aa_mode='msaa' and nimble_corner_tex=True "
-                                      "only; the per-fragment UV path is not ported")
         unported = {
             "four_channel": self.four_channel,  # the heatmap channel of the input
             "rgb2hm": self.rgb2hm,  # the hourglass heatmap branch
             "freeze_hm_estimator": self.freeze_hm_estimator,
             "fsdp": self.fsdp != 1,  # the DP x FSDP mesh
-            "test_refinement": self.test_refinement,  # training/fitting.py, the test-time MANO fit
         }
         for name, on in unported.items():
             if on:

@@ -16,7 +16,9 @@ state dict of hifihr_tpu_torch.models.HiFiHR with the same configuration:
   every s2d tap, so fresh and trained kernels both convert exactly.
 
 The LightEstimator flattens in NHWC order in both packages, so its fc0 rows
-need no permutation. The same function converts the perceptual loss's
+need no permutation. mano_new's heads (`beta_fc0/1`, `theta_fc0/1`, at the
+top of the flax tree) map by the Dense rule to the model's modules of the
+same names, and its ResNet-50 by the encoder's rules. The same function converts the perceptual loss's
 VGG19 features ({"params": {"conv0": ..., ..., "conv5": ...}}) into the
 state dict of hifihr_tpu_torch.losses.perceptual.VGG19Features.
 """

@@ -2,6 +2,9 @@
 NimbleLayer): 20/30/10 shape/pose/texture PCA over a 5990-vertex,
 11,926-face skin mesh with 25 joints.
 
+`vert_uv` (V, 2) and `face_uv_np` (F, 3, 2) are the asset's UV chart and
+per-corner atlas, where it has them.
+
 `layer(hand_params)` -> {nimble_joints (B, 25, 3), verts and skin_verts
 (B, 5990, 3), skin_albedo (B, 5990, 3), mano_verts (B, 778, 3), textures
 (B, 256, 256, 7), joints (B, 21, 3) in the legacy MANO order, rot (B, 3)}.
@@ -83,6 +86,9 @@ class NimbleLayer(nn.Module):
         self.v_template_np = np.asarray(m.v_template, np.float32)
         self.faces_np = np.asarray(m.faces, np.int32)
         self.face_uv_np = None if m.face_uv is None else np.asarray(m.face_uv, np.float32)
+        # the per-vertex UV chart (V, 2); the model renders through the UV
+        # maps only where the asset has one (JAX hifihr.py:217-220)
+        self.vert_uv_np = None if m.vert_uv is None else np.asarray(m.vert_uv, np.float32)
         parents = np.asarray(m.parents)
         # bones grouped by their depth in the chain, root excluded: each
         # level's transforms are one batched product with their parents'
@@ -108,6 +114,7 @@ class NimbleLayer(nn.Module):
         self.register_buffer("mano_vertex_map", torch.as_tensor(np.asarray(m.mano_vertex_map), dtype=torch.int64),
                              persistent=False)
         buf("posedirs", None if m.posedirs is None else np.asarray(m.posedirs).reshape(self.n_verts * 3, 135))
+        buf("vert_uv", m.vert_uv)
 
         # UV appearance maps at render resolution, channels [diffuse 3 |
         # normal 3 | spec 1] (diffuse only where the asset has no others)

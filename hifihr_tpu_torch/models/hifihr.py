@@ -1,13 +1,19 @@
-"""Composite hand reconstruction model, MANO and NIMBLE branches
+"""Composite hand reconstruction model, MANO, NIMBLE and mano_new branches
 (counterpart of hifihr_tpu/models/hifihr.py::HiFiHR and attach_j2d).
 
 encoder -> light estimator -> hand parameter heads -> MANO or NIMBLE ->
-root-centering -> MSAA or SSAA render (`config.aa_mode`; NIMBLE renders
-through the MSAA corner path, its PCA appearance sampled at the face
-corners). Outputs keep the JAX keys and layouts: images NHWC, re_img
-(B, S, S, 3), re_sil (B, S, S, 1) in {0, 255}, re_depth (B, S, S),
+root-centering -> MSAA or SSAA render (`config.aa_mode`). NIMBLE's MSAA
+render samples its PCA appearance at the face corners
+(`nimble_corner_tex`) or its UV maps per fragment; its SSAA render always
+samples the UV maps. Outputs keep the JAX keys and layouts: images NHWC,
+re_img (B, S, S, 3), re_sil (B, S, S, 1) in {0, 255}, re_depth (B, S, S),
 maskRGBs. The encoder runs in `config.compute_dtype` (bf16 autocast on the
 card); everything after it runs in fp32.
+
+`hand_model="mano_new"` is the YTBHand baseline: ResNet-50 in fp32 (the JAX
+package builds that encoder without a dtype), two MLP heads for MANO's
+shape (10) and pose (48), MANO, and the FreiHAND joints regressed from the
+mesh; no light estimator and no render.
 """
 
 from __future__ import annotations
@@ -15,6 +21,7 @@ from __future__ import annotations
 import contextlib
 
 import torch
+import torch.nn.functional as Fn
 from torch import nn
 
 from hifihr_tpu_torch import constant, variance_scaling_
@@ -43,6 +50,14 @@ class HiFiHR(nn.Module):
     def __init__(self, config: Config):
         super().__init__()
         self.config = config
+        if config.hand_model == "mano_new":
+            # whatever config.pretrain says (JAX hifihr.py:47-55)
+            self.encoder = ResNetEncoder("res50")
+            feat = self.encoder.backbone.out_channels
+            self.beta_fc0, self.beta_fc1 = nn.Linear(feat, 512), nn.Linear(512, 10)
+            self.theta_fc0, self.theta_fc1 = nn.Linear(feat, 512), nn.Linear(512, 48)
+            self.mano = ManoLayer(ncomps=45)
+            return
         self.encoder = EffNetEncoder() if config.pretrain == "effb3" else ResNetEncoder(config.pretrain)
         backbone = self.encoder.backbone
         shape_nc, pose_nc, tex_nc = config.ncomps
@@ -61,9 +76,14 @@ class HiFiHR(nn.Module):
             self.nimble = NimbleLayer()
             self.mano = ManoLayer()  # supplies mano_faces only
             if config.render:
-                nb = self.nimble
-                self.renderer = PhongRenderer(nb.faces_np, nb.v_template_np, settings, face_uv=nb.face_uv_np,
-                                              corner_mean=nb.corner_mean_np, corner_basis=nb.corner_basis_np)
+                # the UV tables where the asset has a chart (JAX hifihr.py:217-220);
+                # the corner tables for the MSAA corner path only
+                nb, uv = self.nimble, self.nimble.vert_uv_np is not None
+                corner = config.nimble_corner_tex
+                self.renderer = PhongRenderer(nb.faces_np, nb.v_template_np, settings,
+                                              vert_uv=nb.vert_uv_np, face_uv=nb.face_uv_np if uv else None,
+                                              corner_mean=nb.corner_mean_np if corner else None,
+                                              corner_basis=nb.corner_basis_np if corner else None)
 
     def _encoder_autocast(self, device: torch.device):
         if self.config.compute_dtype == "bfloat16":
@@ -79,6 +99,8 @@ class HiFiHR(nn.Module):
                 mode_train: bool = True) -> dict:
         """images (B, S, S, 3) float in [0, 1]; Ks (B, 3, 3); root_xyz (B, 1, 3)."""
         cfg = self.config
+        if cfg.hand_model == "mano_new":
+            return self._forward_mano_new(images)
         b = images.shape[0]
         with self._encoder_autocast(images.device):
             low, features = self.encoder(images)
@@ -108,17 +130,21 @@ class HiFiHR(nn.Module):
             outputs["nimble_joints"] = nj - nroot
 
         if cfg.render and Ks is not None and root_xyz is not None:
+            texture_image = None
             if cfg.hand_model == "mano":
                 render_verts, albedo, tex_coef = outputs["mano_verts"] + root_xyz, self._vertex_albedo(b), None
             else:  # offset by the NIMBLE root
                 render_verts = outputs["skin_verts"] - nroot + root_xyz
                 albedo, tex_coef = outputs["skin_albedo"], hand_params["texture_params"]
+                if self.nimble.vert_uv_np is not None:
+                    texture_image = outputs["textures"]
             if light_params is not None:
                 light = DirectionalLight.from_estimator(light_params["colors"],
                                                         light_params["directions"])
             else:
                 light = DirectionalLight.default(b, images.dtype, images.device)
-            rgba = self.renderer(render_verts, albedo, Ks[:, :3, :3], light, tex_coef=tex_coef)
+            rgba = self.renderer(render_verts, albedo, Ks[:, :3, :3], light, tex_coef=tex_coef,
+                                 texture_image=texture_image)
             re_sil = (rgba[..., 3:4] > 0).to(images.dtype) * 255.0
             outputs["re_img"] = rgba[..., :3]
             outputs["re_sil"] = re_sil
@@ -129,6 +155,20 @@ class HiFiHR(nn.Module):
         if light_params is not None:
             outputs["light_params"] = light_params
         return outputs
+
+    def _forward_mano_new(self, images: torch.Tensor) -> dict:
+        """JAX hifihr.py:118-140: the encoder in fp32 (no autocast), the two
+        heads, MANO, joints centred on root 9."""
+        _, feat = self.encoder(images)
+        beta = self.beta_fc1(Fn.relu(self.beta_fc0(feat)))
+        if self.config.use_mean_shape:
+            beta = torch.zeros_like(beta)
+        theta = self.theta_fc1(Fn.relu(self.theta_fc0(feat)))
+        verts = self.mano(theta, beta).verts
+        joints = regress_joints_frei(verts, self.mano.J_regressor)
+        root = joints[:, ROOT_ID:ROOT_ID + 1]
+        return {"pose_params": theta, "shape_params": beta, "verts": verts, "mano_verts": verts - root,
+                "joints": joints - root, "mano_faces": self.mano.faces}
 
 
 def attach_j2d(outputs: dict, Ks=None, root_xyz=None, ortho_intr=None,
@@ -151,6 +191,11 @@ def attach_j2d(outputs: dict, Ks=None, root_xyz=None, ortho_intr=None,
 # scale of the hand heads' output layers in `init_weights`: at He scale, an
 # untrained encoder's features (~1e2) give poses of hundreds of radians
 HEAD_OUT_SCALE = 1e-3
+# mano_new's dense layers (nn.Dense with flax's default init in JAX). Its
+# *_fc1 outputs are not scaled by HEAD_OUT_SCALE: the branch renders
+# nothing, so a far-from-mean random pose harms no render, and its init stays
+# the distribution JAX draws
+MANO_NEW_DENSE = ("beta_fc0", "beta_fc1", "theta_fc0", "theta_fc1")
 
 
 def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
@@ -161,9 +206,10 @@ def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
     fan_out, truncated) over the s2d kernel's (M, M, 4C, O) shape and every
     other conv (the encoders', the light estimator's) lecun_normal,
     truncated, with fan_in = (C_in / groups) k^2; the dense layers
-    He-normal (fan_in). The hand heads' output layers are scaled by
-    HEAD_OUT_SCALE, so random weights predict a hand near MANO's mean pose
-    and shape."""
+    He-normal (fan_in), except mano_new's four (MANO_NEW_DENSE), which
+    flax builds with its default lecun_normal (truncated, fan_in). The hand
+    heads' output layers are scaled by HEAD_OUT_SCALE, so random weights
+    predict a hand near MANO's mean pose and shape."""
     gen = torch.Generator(device="cpu").manual_seed(seed)
     with torch.no_grad():
         for name, m in model.named_modules():
@@ -174,6 +220,8 @@ def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
                 variance_scaling_(m.weight, 2.0, m.taps ** 2 * m.weight.shape[0], gen)
             elif isinstance(m, nn.Conv2d):
                 variance_scaling_(m.weight, 1.0, m.weight[0].numel(), gen)
+            elif isinstance(m, nn.Linear) and name in MANO_NEW_DENSE:
+                variance_scaling_(m.weight, 1.0, m.weight.shape[1], gen)
             elif isinstance(m, nn.Linear):
                 w = m.weight
                 scale = HEAD_OUT_SCALE if name.startswith("hand_encoder.") and name.endswith("_out") else 1.0

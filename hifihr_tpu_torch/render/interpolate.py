@@ -1,8 +1,9 @@
 """Barycentric recompute + attribute interpolation from a per-pixel face
 selection (counterpart of hifihr_tpu/render/interpolate.py).
 
-MSAA path: `fragment_interpolate` (per-vertex attributes, and NIMBLE's
-per-face-corner appearance), one K2 fetch of a packed face table,
+MSAA path: `fragment_interpolate` (per-vertex attributes, a static UV
+atlas and NIMBLE's per-face-corner appearance), one K2 fetch of a packed
+face table,
 barycentrics projected onto the simplex.
 SSAA path: `barycentric_coords`, `interpolate_attribute` and
 `interpolate_face_attribute`, with JAX's semantics: area kept away from 0
@@ -24,28 +25,37 @@ from hifihr_tpu_torch.render.mesh import gather_face_rows
 
 
 def pack_face_table(verts_screen: torch.Tensor, faces: torch.Tensor, vert_attrs: torch.Tensor,
-                    corner_attrs: torch.Tensor | None = None) -> torch.Tensor:
+                    corner_attrs: torch.Tensor | None = None,
+                    corner_attrs_static: torch.Tensor | None = None) -> torch.Tensor:
     """(B, F, 9 + 3D) rows [a_uvz b_uvz c_uvz | a_attrs b_attrs c_attrs]:
     each face's screen corners and corner attributes, the table K2 reads.
-    A corner's attributes are its vertex's vert_attrs (B, V, Dv), followed by
-    the face corner's own corner_attrs (B, F, 3, Dc) where given, so
-    D = Dv + Dc."""
+    A corner's attributes are its vertex's vert_attrs (B, V, Dv), then the
+    face corner's batch-constant corner_attrs_static (F, 3, Ds), broadcast
+    over the batch, then its own corner_attrs (B, F, 3, Dc), each where
+    given, so D = Dv + Ds + Dc (the JAX package's channel order)."""
     B, F = vert_attrs.shape[0], faces.shape[0]
     both = gather_face_rows(torch.cat([verts_screen, vert_attrs], dim=-1), faces).reshape(B, F, 3, -1)
+    extra = []
+    if corner_attrs_static is not None:
+        extra.append(corner_attrs_static.to(both.dtype)[None].expand(B, F, 3, corner_attrs_static.shape[-1]))
     if corner_attrs is not None:
-        both = torch.cat([both, corner_attrs.to(both.dtype)], dim=-1)
+        extra.append(corner_attrs.to(both.dtype))
+    if extra:
+        both = torch.cat([both] + extra, dim=-1)
     tri = both[..., :3].reshape(B, F, 9)
     return torch.cat([tri, both[..., 3:].reshape(B, F, -1)], dim=-1).contiguous()
 
 
 def fragment_interpolate(face_id: torch.Tensor, verts_screen: torch.Tensor,
                          faces: torch.Tensor, vert_attrs: torch.Tensor,
+                         corner_attrs_static: torch.Tensor | None = None,
                          corner_attrs_batched: torch.Tensor | None = None):
     """face_id (B, H, W) int32 (-1 = background), verts_screen (B, V, 3)
     [u, v, z], faces (F, 3), vert_attrs (B, V, Dv), and optionally
-    differentiable per-face-corner attributes corner_attrs_batched
-    (B, F, 3, Dc) -> (pix_attrs (B, H, W, Dv + Dc), mask (B, H, W),
-    zbuf (B, H, W)).
+    batch-constant per-face-corner attributes corner_attrs_static
+    (F, 3, Ds) (a seamed UV atlas) and differentiable ones
+    corner_attrs_batched (B, F, 3, Dc) -> (pix_attrs (B, H, W, Dv + Ds + Dc),
+    mask (B, H, W), zbuf (B, H, W)).
 
     Fetches each pixel's row of the packed face table with K2
     (`gather_rows`, whose backward is K3), which gives zero rows for
@@ -53,7 +63,7 @@ def fragment_interpolate(face_id: torch.Tensor, verts_screen: torch.Tensor,
     interpolated on its own, so the order of the channels in the row does
     not change the values."""
     B, H, W = face_id.shape
-    table = pack_face_table(verts_screen, faces, vert_attrs, corner_attrs_batched)
+    table = pack_face_table(verts_screen, faces, vert_attrs, corner_attrs_batched, corner_attrs_static)
     pix = gather_rows(table, _pixel_rows(face_id))
     return interpolate_rows(face_id, pix.reshape(B, H, W, table.shape[-1]))
 

@@ -5,7 +5,8 @@ rasterize_face_id) and of the Pallas TPU kernel
 hifihr_tpu/render/raster_pallas.py::_kernel (rasterize_face_id_pallas):
 
   rasterize_face_id_plain   plain PyTorch version, vectorised over pixels,
-                            walking the faces in ascending chunks
+                            walking the faces in ascending chunks, each
+                            over the pixels its faces' boxes can cover
   rasterize_face_id         the wrapper: for a CUDA tensor the route of
                             csrc/raster_face.cu (`select_face_id_cuda`,
                             three launches on the current stream: a zero
@@ -36,6 +37,7 @@ CUDA tensor); `rasterize_face_id.device_launches` counts the route's launches
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -61,29 +63,54 @@ def face_triangles(verts_screen: torch.Tensor, faces: torch.Tensor) -> torch.Ten
 _PLAIN_CHUNK_ELEMS = 1 << 24
 
 
+def _chunk_window(tc: torch.Tensor, S: int):
+    """(r0, r1, c0, c1): the rows and columns whose pixel centres can lie
+    inside a valid face of the chunk tc (B, n, 9), one pixel wider on each
+    side than its faces' boxes (a centre outside a face's box is outside the
+    face, whatever the rounding), clipped to the image; None when no face
+    of the chunk is valid or the window is empty."""
+    valid = (tc[..., 2::3] > 1e-6).all(-1)
+    if not bool(valid.any()):
+        return None
+    us, vs = tc[..., 0::3][valid], tc[..., 1::3][valid]
+    bounds = [float(x) for x in (us.min(), us.max(), vs.min(), vs.max())]
+    if not all(math.isfinite(x) for x in bounds):
+        return 0, S, 0, S
+    lo_u, hi_u, lo_v, hi_v = bounds
+    c0, c1 = max(0, math.floor(lo_u - 0.5) - 1), min(S, math.floor(hi_u - 0.5) + 2)
+    r0, r1 = max(0, math.floor(lo_v - 0.5) - 1), min(S, math.floor(hi_v - 0.5) + 2)
+    return (r0, r1, c0, c1) if r0 < r1 and c0 < c1 else None
+
+
 def select_face_id_plain(tri: torch.Tensor, image_size: int):
     """Plain PyTorch selection from K4's (B, F, 9) input: the kernel's
     arithmetic in the same order, vectorised over pixels and a chunk of
-    faces, chunks in ascending face order."""
+    faces, chunks in ascending face order, each over the window of pixels
+    its faces can cover (`_chunk_window`)."""
     B, F, _ = tri.shape
     S = image_size
     dev = tri.device
     f32 = torch.float32
     centre = torch.arange(S, dtype=f32, device=dev) + 0.5
-    u = centre.view(1, 1, S, 1)  # pixel column
-    v = centre.view(1, S, 1, 1)  # pixel row
+    u_all = centre.view(1, 1, S, 1)  # pixel column
+    v_all = centre.view(1, S, 1, 1)  # pixel row
 
     zb = torch.full((B, S, S), float("inf"), dtype=f32, device=dev)
     fid = torch.full((B, S, S), -1, dtype=torch.int32, device=dev)
     tiny = torch.full((), 1e-12, dtype=f32, device=dev)
     chunk = max(1, min(F, _PLAIN_CHUNK_ELEMS // max(1, B * S * S)))
     for f0 in range(0, F, chunk):
+        window = _chunk_window(tri[:, f0:f0 + chunk], S)
+        if window is None:
+            continue
+        r0, r1, c0, c1 = window
+        u, v = u_all[:, :, c0:c1], v_all[:, r0:r1]
         t = tri[:, f0:f0 + chunk].unsqueeze(1).unsqueeze(1)  # (B, 1, 1, n, 9)
         n = t.shape[3]
         ax, ay, az = t[..., 0], t[..., 1], t[..., 2]
         bx, by, bz = t[..., 3], t[..., 4], t[..., 5]
         cx, cy, cz = t[..., 6], t[..., 7], t[..., 8]
-        e0 = (cx - bx) * (v - by) - (cy - by) * (u - bx)  # (B, S, S, n)
+        e0 = (cx - bx) * (v - by) - (cy - by) * (u - bx)  # (B, rows, cols, n)
         e1 = (ax - cx) * (v - cy) - (ay - cy) * (u - cx)
         e2 = (bx - ax) * (v - ay) - (by - ay) * (u - ax)
         area = e0 + e1 + e2
@@ -100,9 +127,10 @@ def select_face_id_plain(tri: torch.Tensor, image_size: int):
         cmin = zm.amin(-1, keepdim=True)
         local = torch.arange(n, device=dev).expand_as(zm)
         first = torch.where(hit & (zm == cmin), local, n).amin(-1)
-        better = cmin[..., 0] < zb
-        zb = torch.where(better, cmin[..., 0], zb)
-        fid = torch.where(better, (first + f0).to(torch.int32), fid)
+        zb_w, fid_w = zb[:, r0:r1, c0:c1], fid[:, r0:r1, c0:c1]
+        better = cmin[..., 0] < zb_w
+        zb[:, r0:r1, c0:c1] = torch.where(better, cmin[..., 0], zb_w)
+        fid[:, r0:r1, c0:c1] = torch.where(better, (first + f0).to(torch.int32), fid_w)
     return fid, zb
 
 

@@ -1,5 +1,5 @@
 """Phong renderer (counterpart of hifihr_tpu/render/renderer.py::
-PhongRenderer with vertex colours), in two anti-aliasing modes:
+PhongRenderer), in two anti-aliasing modes:
 
 - 'msaa': project with pixel intrinsics -> K1 face selection with
   aa_factor x aa_factor subsample coverage at base resolution -> barycentric
@@ -20,6 +20,15 @@ PhongRenderer with vertex colours), in two anti-aliasing modes:
   (`torch.utils.checkpoint`, JAX's `jax.checkpoint`): its supersampled
   activations are 9x the MSAA path's.
 
+The UV path (a `texture_image` and a UV chart given; NIMBLE with
+`nimble_corner_tex=False` in MSAA, and NIMBLE in SSAA): the channels are
+[tangents, normals] (with the 7-channel maps) or [normals], the per-face
+atlas corners interpolated beside them (in MSAA a static channel of K2's
+row, 9 + 3 (6 + 2) = 33 floats for NIMBLE; in SSAA
+`interpolate_face_attribute`), and each fragment samples the maps
+(`texture.sample_texture`: a K2 fetch of the packed texel quads, K3 in
+backward); a per-vertex chart alone rides the vertex channels.
+
 Faces are always put in the Morton order of the template: face ids, and so
 the rasterisers' tie rules, are internal to the renderer.
 """
@@ -35,11 +44,22 @@ from torch.utils.checkpoint import checkpoint
 
 from hifihr_tpu_torch import constant
 from hifihr_tpu_torch.render.interpolate import (barycentric_coords, fragment_interpolate,
-                                                 interpolate_attribute)
+                                                 interpolate_attribute, interpolate_face_attribute)
 from hifihr_tpu_torch.render.mesh import vertex_normals, vertex_normals_and_tangents
 from hifihr_tpu_torch.render.raster import project_to_screen, rasterize_face_id
 from hifihr_tpu_torch.render.raster_msaa import rasterize_msaa
 from hifihr_tpu_torch.render.shading import DirectionalLight, phong_shade
+from hifihr_tpu_torch.render.texture import sample_texture
+
+
+class _Plan(NamedTuple):
+    """Which channels a render interpolates (JAX renderer.py:227-240)."""
+
+    use_uv: bool  # sample UV maps, not vertex colours
+    with_maps: bool  # the normal and spec maps too (a 7-channel image)
+    uv_in_verts: bool  # the per-vertex chart rides the vertex channels
+    nc: int  # vertex colour channels (0 with UV)
+    face_uv: torch.Tensor | None  # (F, 3, 2) atlas corners for the tangents
 
 
 class RenderSettings(NamedTuple):
@@ -101,10 +121,12 @@ class PhongRenderer(nn.Module):
     does not hold them."""
 
     def __init__(self, faces, sort_template, settings: RenderSettings = RenderSettings(),
-                 face_uv=None, corner_mean=None, corner_basis=None):
+                 face_uv=None, corner_mean=None, corner_basis=None, vert_uv=None):
         """faces (F, 3); optional per-face tables, permuted with the faces:
         face_uv (F, 3, 2) atlas corners, and the corner-sampled appearance
-        corner_mean (F, 3, 7) and corner_basis (F, 3, 7, T) (NIMBLE)."""
+        corner_mean (F, 3, 7) and corner_basis (F, 3, 7, T) (NIMBLE); and
+        the per-vertex chart vert_uv (V, 2), used where face_uv is not
+        given."""
         super().__init__()
         order = morton_face_order(sort_template, faces)
 
@@ -116,6 +138,8 @@ class PhongRenderer(nn.Module):
         buf("face_uv", face_uv)
         buf("corner_mean", corner_mean)
         buf("corner_basis", corner_basis)
+        self.register_buffer("vert_uv", None if vert_uv is None else torch.as_tensor(
+            np.asarray(vert_uv), dtype=torch.float32), persistent=False)
         if corner_mean is not None and (face_uv is None or np.shape(corner_mean)[-1] != 7):
             raise ValueError("the corner path needs face_uv and 7 appearance channels "
                              "(diffuse, normal map, spec weight)")
@@ -146,34 +170,89 @@ class PhongRenderer(nn.Module):
         return barycentric_coords(face_id, verts_screen, self.faces), verts_screen
 
     def forward(self, verts_cam: torch.Tensor, vert_colors: torch.Tensor, K: torch.Tensor,
-                light: DirectionalLight | None = None,
-                tex_coef: torch.Tensor | None = None) -> torch.Tensor:
+                light: DirectionalLight | None = None, tex_coef: torch.Tensor | None = None,
+                texture_image: torch.Tensor | None = None) -> torch.Tensor:
         """verts_cam (B, V, 3) camera space (z > 0 forward), vert_colors
         (B, V, 3) albedo, K (B, 3, 3) pixel intrinsics, tex_coef (B, T) PCA
-        appearance coefficients (NIMBLE) ->
+        appearance coefficients (NIMBLE), texture_image (B, Ht, Wt, 3 or 7)
+        UV maps (diffuse, or diffuse + tangent-space normal + spec weight) ->
         (B, S, S, 5) [rgb * coverage, coverage, camera z (0 on background)];
         in 'ssaa' mode each channel is the mean of its aa_factor^2
         supersampled pixels. With tex_coef and corner tables, MSAA renders
-        through the corner path and vert_colors is not read."""
+        through the corner path; with texture_image and a UV chart, the UV
+        maps are sampled per fragment; either way vert_colors is not read."""
         s = self.settings
         if light is None:
             light = DirectionalLight.default(verts_cam.shape[0], verts_cam.dtype,
                                              verts_cam.device)
         if s.aa_mode == "msaa" and tex_coef is not None and self.corner_mean is not None:
             return self._forward_corner(verts_cam, K, light, tex_coef)
+        plan = self._plan(vert_colors, texture_image)
         if s.aa_mode == "ssaa":
-            return self._forward_ssaa(verts_cam, vert_colors, K, light)
+            return self._forward_ssaa(plan, verts_cam, vert_colors, K, light, texture_image)
         face_id, coverage = self.select_faces(verts_cam, K)
-
-        verts_screen = project_to_screen(verts_cam, K)
-        attrs = torch.cat([vert_colors, vertex_normals(verts_cam, self.faces)], dim=-1)
-        pix, mask, zbuf = fragment_interpolate(face_id, verts_screen, self.faces, attrs)
+        attrs = self._assemble(plan, verts_cam, vert_colors, include_points=False)
+        # the atlas corners ride K2's row as a static channel, last
+        static = self.face_uv if plan.use_uv and self.face_uv is not None else None
+        pix, mask, zbuf = fragment_interpolate(face_id, project_to_screen(verts_cam, K), self.faces, attrs,
+                                               corner_attrs_static=static)
+        pix_uv = None
+        if static is not None:
+            pix, pix_uv = pix[..., :-2], pix[..., -2:]
         pix_p = _pixel_ray_points(zbuf, mask, K, s.image_size)
-        nc = vert_colors.shape[-1]
-        rgb = phong_shade(pix[..., :nc], pix[..., nc:nc + 3], pix_p, light)
-        rgb = rgb * coverage[..., None]
-        covered = (coverage > 0).to(rgb.dtype)[..., None]
-        return torch.cat([rgb, coverage[..., None], pix_p[..., 2:3] * covered], dim=-1)
+        return self._shade_pix(plan, pix, pix_uv, texture_image, coverage, light, pix_p)
+
+    def _plan(self, vert_colors: torch.Tensor, texture_image: torch.Tensor | None) -> _Plan:
+        """JAX's channel plan: UV maps where an image and a chart are given,
+        with the normal and spec maps where the image has 7 channels."""
+        use_uv = texture_image is not None and (self.face_uv is not None or self.vert_uv is not None)
+        face_uv = self.face_uv
+        if face_uv is None and self.vert_uv is not None:
+            face_uv = self.vert_uv[self.faces]  # (F, 3, 2)
+        return _Plan(use_uv, use_uv and texture_image.shape[-1] >= 7, use_uv and self.face_uv is None,
+                     0 if use_uv else vert_colors.shape[-1], face_uv)
+
+    def _assemble(self, plan: _Plan, verts_cam, vert_colors, include_points: bool) -> torch.Tensor:
+        """The per-vertex channels: [vert colours | vert UV]?, [tangents,
+        normals] with maps or [normals], [points]?."""
+        parts = []
+        if not plan.use_uv:
+            parts.append(vert_colors)
+        elif plan.uv_in_verts:
+            parts.append(self.vert_uv[None].expand(verts_cam.shape[0], -1, -1))
+        if plan.with_maps:
+            normals, tangents = vertex_normals_and_tangents(verts_cam, self.faces, plan.face_uv)
+            parts += [tangents, normals]
+        else:
+            parts.append(vertex_normals(verts_cam, self.faces))
+        if include_points:
+            parts.append(verts_cam)
+        return torch.cat(parts, dim=-1)
+
+    def _shade_pix(self, plan: _Plan, pix, pix_uv, texture_image, cover, light, pix_p=None) -> torch.Tensor:
+        """Phong-shade the interpolated channels of `_assemble`: pix_uv
+        (B, H, W, 2), else the UV at the head of pix; pix_p the fragments'
+        camera points, else the tail of pix -> [rgb * cover, cover, depth]."""
+        off = 0
+        texels = normal_map = spec_map = tangent = None
+        if not plan.use_uv:
+            texels, off = pix[..., :plan.nc], plan.nc
+        elif pix_uv is None:
+            pix_uv, off = pix[..., 0:2], 2
+        if plan.with_maps:
+            tangent, off = pix[..., off:off + 3], off + 3
+        pix_n = pix[..., off:off + 3]
+        if pix_p is None:
+            pix_p = pix[..., off + 3:off + 6]
+        if plan.use_uv:
+            sampled = sample_texture(texture_image, pix_uv)
+            texels = sampled[..., :3]
+            if plan.with_maps:
+                normal_map, spec_map = sampled[..., 3:6], sampled[..., 6:7]
+        rgb = phong_shade(texels, pix_n, pix_p, light, normal_map=normal_map, tangents=tangent,
+                          spec_map=spec_map) * cover[..., None]
+        covered = (cover > 0).to(rgb.dtype)[..., None]
+        return torch.cat([rgb, cover[..., None], pix_p[..., 2:3] * covered], dim=-1)
 
     def corner_appearance(self, tex_coef: torch.Tensor) -> torch.Tensor:
         """The PCA appearance at every face corner, (B, F, 3, 7) in [0, 1],
@@ -198,24 +277,20 @@ class PhongRenderer(nn.Module):
         covered = (coverage > 0).to(rgb.dtype)[..., None]
         return torch.cat([rgb, coverage[..., None], pix_p[..., 2:3] * covered], dim=-1)
 
-    def _forward_ssaa(self, verts_cam, vert_colors, K, light):
+    def _forward_ssaa(self, plan: _Plan, verts_cam, vert_colors, K, light, texture_image):
         s = self.settings
         K_big = _scale_intrinsics(K, float(s.aa_factor))
         face_id, _ = self.select_faces_ssaa(verts_cam, K)
-        nc = vert_colors.shape[-1]
 
-        def shade(verts_cam, vert_colors):
+        def shade(verts_cam, vert_colors, texture_image):
             frag = barycentric_coords(face_id, project_to_screen(verts_cam, K_big), self.faces)
-            attrs = torch.cat([vert_colors, vertex_normals(verts_cam, self.faces), verts_cam], dim=-1)
-            pix = interpolate_attribute(frag, attrs)
-            mask = frag["mask"]
-            pix_p = pix[..., nc + 3:nc + 6]
-            rgb = phong_shade(pix[..., :nc], pix[..., nc:nc + 3], pix_p, light) * mask[..., None]
-            covered = (mask > 0).to(rgb.dtype)[..., None]
-            rgba = torch.cat([rgb, mask[..., None], pix_p[..., 2:3] * covered], dim=-1)
-            return _avg_pool(rgba, s.aa_factor)
+            pix = interpolate_attribute(frag, self._assemble(plan, verts_cam, vert_colors, include_points=True))
+            pix_uv = None
+            if plan.use_uv and self.face_uv is not None:
+                pix_uv = interpolate_face_attribute(frag, face_id, self.face_uv)
+            return _avg_pool(self._shade_pix(plan, pix, pix_uv, texture_image, frag["mask"], light), s.aa_factor)
 
         if not torch.is_grad_enabled():  # eval under inference_mode: nothing to recompute
-            return shade(verts_cam, vert_colors)
-        return checkpoint(shade, verts_cam, vert_colors, use_reentrant=False, preserve_rng_state=False)
-
+            return shade(verts_cam, vert_colors, texture_image)
+        return checkpoint(shade, verts_cam, vert_colors, texture_image, use_reentrant=False,
+                          preserve_rng_state=False)

@@ -13,7 +13,9 @@ epoch (the step count), at every `print_freq`-th step (one readback of the
 loss terms), and once after it (the last total and the step count); a
 skipped step is decided on the device (steps.make_train_step) and counted
 from the step count. Eval keeps its results on the device and reads them
-back once, at its end.
+back once, at its end; with `test_refinement` (MANO only, as in the JAX
+package) each eval batch's MANO parameters are refined by the test-time fit
+(training/fitting.py) and its PA-MPJPE reported as pa_mpjpe_refined_cm.
 """
 
 from __future__ import annotations
@@ -109,6 +111,7 @@ class Trainer:
         self._train_steps: dict = {}
         self._eval_steps: dict = {}
         self._lpips = None
+        self._fit = None  # test-time MANO fitting, built at its first use
         self.start_epoch = 0
         if config.pretrain_model:
             self.state, saved_epoch = CheckpointManager(
@@ -206,6 +209,28 @@ class Trainer:
         self._log(rec)
         return rec
 
+    def _refine(self, out: dict, batch: dict) -> tuple:
+        """Test-time MANO fitting (training/fitting.py, the reference's
+        mano_fitting): the predicted MANO parameters refined against the
+        heatmap branch's 2D keypoints (hm_j2d), else the batch's j2d_gt,
+        else the projected joints, with unit confidence. Returns (joints,
+        verts), root-relative at joint 9, on the device."""
+        from hifihr_tpu_torch.hand.mano import ManoLayer, regress_joints_frei
+        from hifihr_tpu_torch.training.fitting import make_fitting_fn
+
+        if self._fit is None:
+            mano = ManoLayer(ncomps=self.config.ncomps[1] - 3).to(self.device)
+            self._fit = mano, make_fitting_fn(mano, device=self.device)
+        mano, fit = self._fit
+        target = out.get("hm_j2d", batch.get("j2d_gt", out.get("j2d")))
+        conf = torch.ones((*target.shape[:2], 1), dtype=target.dtype, device=target.device)
+        p = fit(out["pose_params"], out["shape_params"], out["trans"], out["scale"],
+                batch["Ks"][:, :3, :3], target, conf, batch["root_xyz"])
+        verts = mano(p["pose"], p["betas"]).verts
+        joints = regress_joints_frei(verts, mano.J_regressor)
+        root = joints[:, 9:10]
+        return joints - root, verts - root
+
     @torch.no_grad()
     def evaluate(self, epoch: int = -1) -> dict:
         """FreiHAND-style eval: PA-MPJPE / PA-MPVPE in cm
@@ -220,6 +245,8 @@ class Trainer:
         if self.val_loader is None:
             return {}
         xyz_pred, verts_pred, n_valids = [], [], []
+        xyz_refined: list = []
+        refine = self.config.test_refinement and self.config.hand_model == "mano"
         tex_metrics: list[dict] = []
         err_2d: dict[str, list] = {"proj": [], "pred": [], "detect": []}
         dat_name = "FreiHand"
@@ -250,6 +277,8 @@ class Trainer:
             dev_batch = claim(staged)
             out = self._step_for(dat_name, train=False)(dev_batch)
             n_valids.append(n_valid)
+            if refine:  # stays on the device until the readback at the end
+                xyz_refined.append(self._refine(out, dev_batch)[0][:n_valid])
             if i == 0:  # demo dump (reference displadic every demo_freq)
                 self._demo_dump(os.path.join(self.out_dir, "pic", f"eval_{epoch}.png"),
                                 _host(dev_batch, n_valid), _host(out, n_valid), epoch)
@@ -299,6 +328,9 @@ class Trainer:
             result["pa_epe_mean_cm"] = epe_mean * 100
             result["pa_epe_median_cm"] = epe_med * 100
             result["pck_auc"] = auc
+            if xyz_refined:
+                refined = torch.cat(xyz_refined)[:n]
+                result["pa_mpjpe_refined_cm"] = float(M.pa_mpjpe(refined, gt_xyz)) * 100
         if tex_metrics:
             for k in tex_metrics[0]:
                 per_batch = torch.stack([m[k] for m in tex_metrics]).tolist()

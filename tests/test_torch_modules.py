@@ -41,8 +41,11 @@ def test_config_from_one_dict():
     defaults = Config()
     for k in d:
         assert getattr(defaults, k) == getattr(JConfig(), k)
-    for bad in (dict(hand_model="mano_new"), dict(hand_model="nimble", aa_mode="ssaa"),
-                dict(hand_model="nimble", nimble_corner_tex=False), dict(aa_mode="fxaa"), dict(rgb2hm=True)):
+    # the model variants the port runs since mano_new and NIMBLE's UV and SSAA paths came
+    for good in (dict(hand_model="mano_new"), dict(hand_model="nimble", aa_mode="ssaa"),
+                 dict(hand_model="nimble", nimble_corner_tex=False), dict(test_refinement=True)):
+        assert Config(**good).to_dict() == JConfig(**good).to_dict()
+    for bad in (dict(aa_mode="fxaa"), dict(rgb2hm=True), dict(four_channel=True), dict(fsdp=2)):
         with pytest.raises(NotImplementedError):
             Config(**bad)
 

@@ -52,31 +52,10 @@ Tolerances, those of the MANO slice tests:
   joints' relative change.
 """
 
-from collections import namedtuple
-
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
-import hifihr_tpu.render.mesh as jmesh
-from hifihr_tpu.config import Config as JConfig
-from hifihr_tpu.losses.stack import LossComputer as JLossComputer
-from hifihr_tpu.models.hifihr import HiFiHR as JModel
-from hifihr_tpu.render.renderer import PhongRenderer as JRenderer
-from hifihr_tpu.training.steps import make_eval_step as jmake_eval_step
-from hifihr_tpu.training.steps import make_sched as jmake_sched
-from hifihr_tpu.training.steps import make_train_step as jmake_train_step
-from hifihr_tpu.training.train_state import TrainState as JTrainState
-from hifihr_tpu.training.train_state import make_optimizer as jmake_optimizer
-from hifihr_tpu_torch.config import Config
-from hifihr_tpu_torch.convert import state_dict_from_flax
-from hifihr_tpu_torch.losses.stack import LossComputer
-from hifihr_tpu_torch.models.hifihr import HiFiHR
-from hifihr_tpu_torch.training.steps import make_eval_step, make_sched, make_train_step
-from hifihr_tpu_torch.training.train_state import create_train_state
-from torch_port_helpers import fake_K, jax_msaa_select_op_by_op, randomize_variables, rel_l2
+from torch_port_helpers import nimble_slice_batch, nimble_step_runs, rel_l2
 
 B, S = 8, 32
 LOSSES = ("joint_3d", "joint_2d", "vert_3d", "mscale", "mshape", "mpose", "sil", "iou",
@@ -88,89 +67,13 @@ ZERO_GRAD_BIASES = {"hand_encoder.base_fc0.bias": "hand_encoder.base_fc0.weight"
                     "hand_encoder.base_fc1.bias": "hand_encoder.base_fc1.weight"}
 
 
-def _batch():
-    """The flagship batch's keys (__graft_entry__._fake_batch), with seeded
-    targets and masks so that every term has a gradient."""
-    rng = np.random.RandomState(0)
-    return {
-        "imgs": rng.rand(B, S, S, 3).astype(np.float32),
-        "Ks": fake_K(B, S),
-        "root_xyz": np.tile(np.asarray([[[0.0, 0.0, 0.5]]], np.float32), (B, 1, 1)),
-        "joints": (rng.randn(B, 21, 3) * 0.03 + [0, 0, 0.5]).astype(np.float32),
-        "j2d_gt": (rng.rand(B, 21, 2) * S).astype(np.float32),
-        "verts": (rng.randn(B, 778, 3) * 0.03 + [0, 0, 0.5]).astype(np.float32),
-        "segms_gt": (rng.rand(B, S, S) > 0.6).astype(np.float32),
-        "texture_con": rng.uniform(0.5, 1.0, B).astype(np.float32),
-        "scales": np.full((B,), 0.0282, np.float32),
-    }
-
-
-def _floats(d):
-    return {k: float(v) for k, v in d.items()}
-
-
-def _no_incidence(*_):
-    raise RuntimeError("the test takes JAX's fp32 corner accumulation")
-
-
 @pytest.fixture(scope="module")
 def runs():
     """The eval step and two train steps of each package from the same
-    weights: the eval outputs and each side's face choice there, the loss
-    dicts of both train steps, and the first step's gradients."""
-    batch = _batch()
-    jax_faces = []
-    mp = pytest.MonkeyPatch()
-    mp.setattr(JRenderer, "_select_faces_msaa",
-               lambda self, v, K: jax_msaa_select_op_by_op(self, v, K, record=jax_faces))
-    mp.setattr(jmesh, "_corner_incidence", _no_incidence)
-    try:
-        jcfg = JConfig(**CFG)
-        jm = JModel(config=jcfg)
-        jb = {k: jnp.asarray(v) for k, v in batch.items()}
-        v = jax.jit(lambda b: jm.init(jax.random.PRNGKey(0), b["imgs"], b["Ks"], b["root_xyz"], train=False))(jb)
-        v = randomize_variables(v, seed=0)
-        del jax_faces[:]  # init's render
-        estate = namedtuple("State", "params batch_stats")(v["params"], v["batch_stats"])
-        jeval = {k: np.asarray(x) for k, x in jmake_eval_step(jm, "FreiHand", jcfg)(estate, jb).items()}
-        state = JTrainState.create(apply_fn=jm.apply, params=v["params"], tx=jmake_optimizer(jcfg, 1000),
-                                   batch_stats=v["batch_stats"])
-        step = jmake_train_step(jm, JLossComputer(jcfg), "FreiHand", jcfg)
-        sched = jmake_sched(jcfg, 0)
-        state, d1 = step(state, jb, sched)
-        grads = state_dict_from_flax({"params": jax.tree_util.tree_map(
-            lambda m: np.asarray(m) / (1.0 - 0.9), state.opt_state[0].mu)})
-        state, d2 = step(state, jb, sched)
-        jax_run = {"eval": jeval, "loss": [_floats(d1), _floats(d2)], "grads": grads,
-                   "faces": [f for f, _ in jax_faces]}
-    finally:
-        mp.undo()
-    assert len(jax_faces) == 3  # the eval step and two train steps
-
-    cfg = Config(**CFG)
-    model = HiFiHR(cfg)
-    model.load_state_dict(state_dict_from_flax(v), strict=True)
-    own_faces = []
-    select = model.renderer.select_faces
-
-    def jax_choice(verts_cam, K):
-        """The port's own K1 choice, kept, and JAX's, returned."""
-        own_faces.append(select(verts_cam, K)[0].numpy())
-        fid, cov = jax_faces[len(own_faces) - 1]
-        return torch.tensor(fid), torch.tensor(cov)
-
-    model.renderer.select_faces = jax_choice
-    tb = {k: torch.tensor(x) for k, x in batch.items()}
-    teval = {k: x.numpy() for k, x in make_eval_step(model, "FreiHand", cfg)(tb).items()}
-    tstate = create_train_state(model, cfg)
-    tstep = make_train_step(model, LossComputer(cfg), "FreiHand", cfg)
-    tsched = make_sched(cfg, 0, device="cpu")
-    tstate, d1 = tstep(tstate, tb, tsched)
-    grads = {n: p.grad.clone() for n, p in model.named_parameters()}
-    tstate, d2 = tstep(tstate, tb, tsched)
-    port_run = {"eval": teval, "loss": [_floats(d1), _floats(d2)], "grads": grads, "faces": own_faces,
-                "step": int(tstate.step)}
-    return jax_run, port_run
+    weights (torch_port_helpers.nimble_step_runs): the eval outputs and
+    each side's face choice there, the loss dicts of both train steps, and
+    the first step's gradients."""
+    return nimble_step_runs(CFG, nimble_slice_batch(B, S))
 
 
 def test_nimble_own_face_choice(runs):

@@ -145,3 +145,147 @@ def posed_nimble_verts(batch: int, seed: int, z: float = 0.5) -> np.ndarray:
     out = NimbleLayer()({k: jnp.asarray(v) for k, v in nimble_params(batch, seed).items()})
     verts = np.asarray(out["skin_verts"]) - np.asarray(out["nimble_joints"])[:, 11:12]
     return verts + np.asarray([0.0, 0.0, z], np.float32)
+
+
+def jax_ssaa_select_recorded(self, verts_cam, K_big, big, record):
+    """Stands in for hifihr_tpu's PhongRenderer._select_faces where the
+    port shades JAX's face choice anyway: raster_jax.rasterize_face_id
+    jitted (op by op it takes tens of seconds at NIMBLE's 11,926 faces) in a
+    host callback that appends each call's (face_id, zbuf) to `record`."""
+    import jax
+    import jax.numpy as jnp
+
+    from hifihr_tpu.render import raster_jax
+
+    select = jax.jit(lambda vs, f: raster_jax.rasterize_face_id(vs, f, big, chunk=self.settings.face_chunk))
+
+    def host(verts, K, faces):
+        vs = raster_jax.project_to_screen(jnp.asarray(verts), jnp.asarray(K))
+        fid, zbuf = (np.asarray(x) for x in select(vs, jnp.asarray(faces)))
+        record.append((fid, zbuf))
+        return fid, zbuf
+
+    b = verts_cam.shape[0]
+    out = (jax.ShapeDtypeStruct((b, big, big), jnp.int32),
+           jax.ShapeDtypeStruct((b, big, big), jnp.float32))
+    return jax.pure_callback(host, out, jax.lax.stop_gradient(verts_cam),
+                             jax.lax.stop_gradient(K_big), self.faces)
+
+
+def nimble_slice_batch(batch: int, size: int) -> dict:
+    """The flagship batch's keys (__graft_entry__._fake_batch), with seeded
+    targets and masks so that every term has a gradient (the NIMBLE slice
+    tests' batch)."""
+    rng = np.random.RandomState(0)
+    return {
+        "imgs": rng.rand(batch, size, size, 3).astype(np.float32),
+        "Ks": fake_K(batch, size),
+        "root_xyz": np.tile(np.asarray([[[0.0, 0.0, 0.5]]], np.float32), (batch, 1, 1)),
+        "joints": (rng.randn(batch, 21, 3) * 0.03 + [0, 0, 0.5]).astype(np.float32),
+        "j2d_gt": (rng.rand(batch, 21, 2) * size).astype(np.float32),
+        "verts": (rng.randn(batch, 778, 3) * 0.03 + [0, 0, 0.5]).astype(np.float32),
+        "segms_gt": (rng.rand(batch, size, size) > 0.6).astype(np.float32),
+        "texture_con": rng.uniform(0.5, 1.0, batch).astype(np.float32),
+        "scales": np.full((batch,), 0.0282, np.float32),
+    }
+
+
+def nimble_step_runs(cfg: dict, batch: dict) -> tuple:
+    """The eval step and two train steps of each package from the same
+    converted weights on `batch`, in configuration `cfg` (a NIMBLE render,
+    MSAA or SSAA). JAX's face selection is recorded (MSAA: the Pallas kernel
+    interpreted op by op; SSAA: raster_jax jitted) and the port shades JAX's
+    choice, keeping its own; JAX's corner accumulation takes its fp32
+    scatter-add fallback (its bf16 incidence matmul for NIMBLE's mesh is off
+    by up to 1e-2). Returns (jax_run, port_run), each with the eval outputs,
+    both steps' loss dicts (floats), the first step's gradients and the
+    face choices (face ids) of the three renders."""
+    from collections import namedtuple
+
+    import jax
+    import jax.numpy as jnp
+    import pytest
+    import torch
+
+    import hifihr_tpu.render.mesh as jmesh
+    from hifihr_tpu.config import Config as JConfig
+    from hifihr_tpu.losses.stack import LossComputer as JLossComputer
+    from hifihr_tpu.models.hifihr import HiFiHR as JModel
+    from hifihr_tpu.render.renderer import PhongRenderer as JRenderer
+    from hifihr_tpu.training.steps import make_eval_step as jmake_eval_step
+    from hifihr_tpu.training.steps import make_sched as jmake_sched
+    from hifihr_tpu.training.steps import make_train_step as jmake_train_step
+    from hifihr_tpu.training.train_state import TrainState as JTrainState
+    from hifihr_tpu.training.train_state import make_optimizer as jmake_optimizer
+    from hifihr_tpu_torch.config import Config
+    from hifihr_tpu_torch.convert import state_dict_from_flax
+    from hifihr_tpu_torch.losses.stack import LossComputer
+    from hifihr_tpu_torch.models.hifihr import HiFiHR
+    from hifihr_tpu_torch.training.steps import make_eval_step, make_sched, make_train_step
+    from hifihr_tpu_torch.training.train_state import create_train_state
+
+    def floats(d):
+        return {k: float(v) for k, v in d.items()}
+
+    def no_incidence(*_):
+        raise RuntimeError("the test takes JAX's fp32 corner accumulation")
+
+    ssaa = cfg["aa_mode"] == "ssaa"
+    jax_faces = []
+    mp = pytest.MonkeyPatch()
+    if ssaa:
+        mp.setattr(JRenderer, "_select_faces",
+                   lambda self, v, K, big: jax_ssaa_select_recorded(self, v, K, big, jax_faces))
+    else:
+        mp.setattr(JRenderer, "_select_faces_msaa",
+                   lambda self, v, K: jax_msaa_select_op_by_op(self, v, K, record=jax_faces))
+    mp.setattr(jmesh, "_corner_incidence", no_incidence)
+    try:
+        jcfg = JConfig(**cfg)
+        jm = JModel(config=jcfg)
+        jb = {k: jnp.asarray(v) for k, v in batch.items()}
+        v = jax.jit(lambda b: jm.init(jax.random.PRNGKey(0), b["imgs"], b["Ks"], b["root_xyz"], train=False))(jb)
+        v = randomize_variables(v, seed=0)
+        del jax_faces[:]  # init's render
+        estate = namedtuple("State", "params batch_stats")(v["params"], v["batch_stats"])
+        jeval = {k: np.asarray(x) for k, x in jmake_eval_step(jm, "FreiHand", jcfg)(estate, jb).items()}
+        state = JTrainState.create(apply_fn=jm.apply, params=v["params"], tx=jmake_optimizer(jcfg, 1000),
+                                   batch_stats=v["batch_stats"])
+        step = jmake_train_step(jm, JLossComputer(jcfg), "FreiHand", jcfg)
+        sched = jmake_sched(jcfg, 0)
+        state, d1 = step(state, jb, sched)
+        grads = state_dict_from_flax({"params": jax.tree_util.tree_map(
+            lambda m: np.asarray(m) / (1.0 - 0.9), state.opt_state[0].mu)})
+        state, d2 = step(state, jb, sched)
+        jax_run = {"eval": jeval, "loss": [floats(d1), floats(d2)], "grads": grads,
+                   "faces": [f for f, _ in jax_faces]}
+    finally:
+        mp.undo()
+    assert len(jax_faces) == 3  # the eval step and two train steps
+
+    model = HiFiHR(Config(**cfg))
+    model.load_state_dict(state_dict_from_flax(v), strict=True)
+    own_faces = []
+    r = model.renderer
+    name = "select_faces_ssaa" if ssaa else "select_faces"
+    select = getattr(r, name)
+
+    def jax_choice(verts_cam, K):
+        """The port's own choice, kept, and JAX's, returned."""
+        own_faces.append(select(verts_cam, K)[0].numpy())
+        a, b = jax_faces[len(own_faces) - 1]
+        return torch.tensor(a), torch.tensor(b)
+
+    setattr(r, name, jax_choice)
+    tcfg = Config(**cfg)
+    tb = {k: torch.tensor(x) for k, x in batch.items()}
+    teval = {k: x.numpy() for k, x in make_eval_step(model, "FreiHand", tcfg)(tb).items()}
+    tstate = create_train_state(model, tcfg)
+    tstep = make_train_step(model, LossComputer(tcfg), "FreiHand", tcfg)
+    tsched = make_sched(tcfg, 0, device="cpu")
+    tstate, d1 = tstep(tstate, tb, tsched)
+    grads = {n: p.grad.clone() for n, p in model.named_parameters()}
+    tstate, d2 = tstep(tstate, tb, tsched)
+    port_run = {"eval": teval, "loss": [floats(d1), floats(d2)], "grads": grads, "faces": own_faces,
+                "step": int(tstate.step)}
+    return jax_run, port_run
