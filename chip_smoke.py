@@ -214,11 +214,41 @@ over a few eval steps and a few train steps of every cell. Phases:
      stand-in: pa_mpjpe_cm and pa_mpjpe_refined_cm finite; one batch's fit
      (151 Adam steps, batch 16) on the card against the CPU (the refined
      joints within 1e-4 m), its ms per fit, device busy ms, launches per
-     fit step and host syncs per fit (none)
+     fit step and host syncs per fit (none); its eval reads 256 samples
+     (16 batches), for the script's time limit
+ 24. dp train (64): the flagship train step over two ranks that share the
+     card under gloo (spawned; 32 rows each): K1, K2 and K3 once a step on
+     each rank and held against their plain versions on its step-1 inputs,
+     15 finite terms, no step skipped, the flat parameters of the ranks bit
+     for bit equal after the timed steps; median, images/s of the global
+     batch, device busy ms, launches and peak memory per rank; over two
+     cards under NCCL (fsdp 1 and 2) where there are two, else "not run"
+ 25. NCCL at world 1: the flagship train step in a process group of one
+     rank under NCCL against the step without one, every collective
+     counted: the gradient all-reduce, fed the first run's gradient (K3's
+     atomics vary the last bits between runs), returns it bit for bit, and
+     the terms, the update and the BatchNorm statistics are bit-equal
+ 26. 1 rank against 2 (gloo, one card): res18, fp32, 32 px, a global batch
+     of 8 varied rows, every ratio term firing (open_2dj, hm_integral,
+     texture_self, mrgb_self): step-1 terms and the step-2 total within
+     1e-4, step-2 terms within 1e-2, the ranks' parameters bit-equal
+ 27. rgb2hm (64, 224^2): the flagship plus the stacked-hourglass branch and
+     its five losses (kp_cons, hm_integral, hm_integral_gt, open_2dj_de,
+     joint_3d_norm) on the flagship batch with seeded openpose
+     pseudo-labels: the checks of phases 6-7 (hm_j2d card against CPU
+     within 1e-4 of the image size; the hourglass's gradients within 5e-2,
+     JAX's own one-ulp move at 32 px, tests/test_torch_rgb2hm.py), and the
+     hourglass's device ms and share of each step
+ 28. configs/smoke_render.json (256 samples a split, the encoder in fp32)
+     through the entry at two ranks sharing the card under gloo: one epoch
+     and its eval (K1, K2, K3 once a step on each rank), rank 0 alone
+     writing; its checkpoint evaluated at one rank and through torchrun at
+     two (metrics within 1e-5), and resumed at one rank
 
 The `{"kernels": [...]}` line also holds every kernel's launches per step
 of the new cells (`launches_mano_new_*`, `launches_nimble_uv_*`,
-`launches_nimble_ssaa_*`, `launches_trainer_mano_new_*`), K4's readings on
+`launches_nimble_ssaa_*`, `launches_trainer_mano_new_*`,
+`launches_rgb2hm_*`, `launches_dp_train_step_per_rank`), K4's readings on
 NIMBLE's SSAA hands (`nimble_ssaa_hand`), K1's and K3's on the UV steps'
 inputs, and K2's and K3's on the texture quads (`texture_quad_nimble_uv`,
 `texture_quad_nimble_ssaa`).
@@ -1092,6 +1122,8 @@ def phase_eval_step(batch: dict, profile: bool, cfg, path: str, check_cfg, check
     torch.cuda.reset_peak_memory_stats()
     numbers = time_steps(lambda: step(batch), n)
     numbers["device_busy_ms"], numbers["launches_per_step"] = device_profile(lambda: step(batch))
+    if cfg.rgb2hm:
+        numbers["hourglass"] = hourglass_share(model, batch, numbers["device_busy_ms"], False, f"the {path} eval step")
     print(f"{path} eval step: " + json.dumps(numbers))
     if profile:
         busy = profile_steps(step, batch)
@@ -1112,7 +1144,8 @@ def eval_card_vs_cpu(cfg32, batch: dict, what: str) -> None:
     gpu32 = make_eval_step(build_model(cfg32, device="cuda", seed=0), "FreiHand", cfg32)(
         {k: v.cuda() for k, v in batch.items()})
     cpu32 = make_eval_step(build_model(cfg32, device="cpu", seed=0), "FreiHand", cfg32)(batch)
-    diffs = {k: (gpu32[k].cpu() - cpu32[k]).abs().max().item() for k in ("joints", "mano_verts", "j2d")}
+    diffs = {k: (gpu32[k].cpu() - cpu32[k]).abs().max().item() for k in ("joints", "mano_verts", "j2d", "hm_j2d")
+             if k in cpu32}
     # a pixel whose nearest face flips between the two runs (ulp-level
     # geometry differences) differs by a whole colour or depth: count shares
     sil_mismatch = (gpu32["re_sil"].cpu() != cpu32["re_sil"]).float().mean().item()
@@ -1122,6 +1155,10 @@ def eval_card_vs_cpu(cfg32, batch: dict, what: str) -> None:
           f"share {sil_mismatch}, share off by > 1e-4 {off}")
     check(diffs["joints"] < 1e-5 and diffs["mano_verts"] < 1e-5, "joints and verts within 1e-5 m")
     check(diffs["j2d"] < 1e-3, "j2d within 1e-3 px")
+    # the soft-argmax over the (S/4)^2 heatmap cells carries the heatmaps'
+    # fp32 differences into uv, about S/4 px times them: hm_j2d within 1e-4
+    # of the image size (3.6e-3 px measured at 224^2 on an H100)
+    check(diffs.get("hm_j2d", 0.0) < 1e-4 * cfg32.image_size, "hm_j2d within 1e-4 of the image size")
     check(sil_mismatch <= 1e-3 and max(off.values()) <= 5e-3, "render agrees with the CPU plain path")
 
 
@@ -1235,9 +1272,13 @@ def one_train_step(cfg, batch: dict, device: str, faces: tuple | None = None):
 def zero_in_exact_arithmetic(name: str) -> bool:
     """A bias whose gradient is zero in exact arithmetic, so that two
     devices' rounding noise is all it holds: a Linear bias that feeds a
-    train-mode BatchNorm, and the last BatchNorm bias of EfficientNet blocks
+    train-mode BatchNorm, the last BatchNorm bias of EfficientNet blocks
     1-25, a per-channel constant whose every path ends in a train-mode
-    BatchNorm (tests/test_torch_effb3_slice.py)."""
+    BatchNorm (tests/test_torch_effb3_slice.py), and every conv bias of the
+    rgb2hm hourglass, whose every path ends in a train-mode BatchNorm or the
+    per-joint softmax (tests/test_torch_rgb2hm.py)."""
+    if re.fullmatch(r"rgb2hm\..*(conv\d?|skip|merge_feat\d|merge_hm\d|hm\d)\.bias", name):
+        return True
     m = re.fullmatch(r"hand_encoder\.base_fc[01]\.bias|encoder\.backbone\.block(\d+)\.bn2\.bias", name)
     return bool(m) and (m.group(1) is None or int(m.group(1)) >= 1)
 
@@ -1369,12 +1410,17 @@ def phase_train_step(batch: dict, profile: bool, cfg, label: str, fired: tuple, 
           f"{small_batch['imgs'].shape[0]} images: worst loss term rel err "
           f"{max(term_err.items(), key=lambda kv: kv[1])}, worst gradient rel L2 {worst}")
     check(max(term_err.values()) <= 1e-4, "loss terms within 1e-4 of the CPU plain path")
-    check(max(grad_err.values()) <= 1e-3, "gradients within 1e-3 relative L2 of the CPU plain path")
+    check(max(v for k, v in grad_err.items() if not k.startswith("rgb2hm.")) <= 1e-3,
+          "gradients within 1e-3 relative L2 of the CPU plain path")
+    check(max((v for k, v in grad_err.items() if k.startswith("rgb2hm.")), default=0.0) <= HOURGLASS_GRAD_TOL,
+          f"the hourglass's gradients within {HOURGLASS_GRAD_TOL} relative L2 of the CPU plain path")
 
     torch.cuda.reset_peak_memory_stats()
     numbers = time_steps(lambda: step(state, batch, sched), images)
     numbers["device_busy_ms"], numbers["launches_per_step"] = device_profile(lambda: step(state, batch, sched))
     numbers["tf32"] = {"cudnn": torch.backends.cudnn.allow_tf32, "matmul": torch.backends.cuda.matmul.allow_tf32}
+    if cfg.rgb2hm:
+        numbers["hourglass"] = hourglass_share(model, batch, numbers["device_busy_ms"], True, f"the {label} train step")
     print(f"{label} train step: " + json.dumps(numbers))
     if profile:
         busy = profile_steps(lambda b: step(state, b, sched), batch)
@@ -2206,6 +2252,7 @@ def texture_quad(cfg, batch: dict, what: str) -> dict:
 
 # phase 23: test-time MANO fitting in the Trainer's eval
 FIT_JOINTS_TOL = 1e-4  # m: the refined joints, card against CPU (tests/test_torch_fitting.py)
+FIT_EVAL_SAMPLES = 256  # 16 eval batches of 16, for the script's time limit
 
 
 def phase_fitting() -> dict:
@@ -2232,7 +2279,8 @@ def phase_fitting() -> dict:
     loop.Trainer._refine = refine
     try:
         with tempfile.TemporaryDirectory(prefix="hifihr_fit_") as tmp, trainer_probes({}) as run:
-            result = entry.main(["--config_json", _smoke_render_copy(tmp, "fit", test_refinement=True),
+            result = entry.main(["--config_json", _smoke_render_copy(tmp, "fit", test_refinement=True,
+                                                                     controlled_size=FIT_EVAL_SAMPLES),
                                  "--mode", "evaluation"])
     finally:
         loop.Trainer._refine = orig
@@ -2283,6 +2331,403 @@ def phase_fitting() -> dict:
     check(not syncs, f"no host sync inside the fit: {syncs[:5]}")
     print(f"phase fitting: {time.perf_counter() - t0:.1f} s")
     return numbers
+
+
+
+# phases 24-28: multi-rank training (two ranks sharing the one card under
+# gloo; over two cards under NCCL where there are two) and the rgb2hm branch
+HM_LOSSES = ("kp_cons", "hm_integral", "hm_integral_gt", "open_2dj_de", "joint_3d_norm")
+DIST_TIMEOUT_S = 300  # of a whole multi-rank run; every collective times out after 120 s
+INVARIANCE_RTOL = 1e-4  # 1 rank against 2 (tests/test_torch_parallel.py)
+# the hourglass's gradients at 32 px, batch 8, card against CPU: JAX's own
+# move under one ulp of input is up to 6.5e-2 there (tests/test_torch_rgb2hm.py)
+HOURGLASS_GRAD_TOL = 5e-2
+
+
+def with_openpose(batch: dict, seed: int = 5) -> dict:
+    """`batch` with seeded openpose pseudo-labels and confidences
+    (`open_2dj`, `open_2dj_con`), so that every heatmap term fires."""
+    n, size = batch["imgs"].shape[:2]
+    rng = np.random.RandomState(seed)
+    dev = batch["imgs"].device
+    return dict(batch, open_2dj=torch.tensor(rng.rand(n, 21, 2) * size, dtype=torch.float32, device=dev),
+                open_2dj_con=torch.tensor(rng.uniform(0.0, 1.0, (n, 21, 1)), dtype=torch.float32, device=dev))
+
+
+def varied_slice_batch(n: int = 8, size: int = 32, seed: int = 0) -> dict:
+    """The slice tests' batch with rows that differ in every key and
+    openpose pseudo-labels (tests/torch_port_helpers.py::varied_batch), on
+    the host, so that no per-rank reduction that is wrong can cancel out."""
+    rng = np.random.RandomState(seed)
+    root = np.stack([rng.uniform(-0.02, 0.02, n), rng.uniform(-0.02, 0.02, n),
+                     rng.uniform(0.45, 0.6, n)], -1)[:, None].astype(np.float32)
+    f = size * 1.8
+    K = np.tile(np.asarray([[f, 0, size / 2], [0, f, size / 2], [0, 0, 1]], np.float32)[None], (n, 1, 1))
+    K[:, :2, :2] *= rng.uniform(0.9, 1.1, (n, 1, 1)).astype(np.float32)
+    b = {
+        "imgs": rng.rand(n, size, size, 3).astype(np.float32), "Ks": K, "root_xyz": root,
+        "joints": (rng.randn(n, 21, 3) * 0.03 + root).astype(np.float32),
+        "j2d_gt": (rng.rand(n, 21, 2) * size).astype(np.float32),
+        "verts": (rng.randn(n, 778, 3) * 0.03 + root).astype(np.float32),
+        "segms_gt": (rng.rand(n, size, size) > rng.uniform(0.3, 0.8, (n, 1, 1))).astype(np.float32),
+        "texture_con": rng.uniform(0.2, 1.0, n).astype(np.float32),
+        "open_2dj": (rng.rand(n, 21, 2) * size).astype(np.float32),
+        "open_2dj_con": rng.uniform(0.0, 1.0, (n, 21, 1)).astype(np.float32),
+        "scales": rng.uniform(0.025, 0.032, n).astype(np.float32),
+    }
+    return {k: torch.tensor(v) for k, v in b.items()}
+
+
+def _rank_state(cfg, device, mesh):
+    """A freshly built model (seed 0) on `mesh`, its train state and step."""
+    from hifihr_tpu_torch.losses.stack import LossComputer
+    from hifihr_tpu_torch.models.hifihr import build_model
+    from hifihr_tpu_torch.parallel.mesh import replicate
+    from hifihr_tpu_torch.training.steps import make_train_step
+    from hifihr_tpu_torch.training.train_state import create_train_state
+
+    model = build_model(cfg, device=device, seed=0)
+    if mesh is not None:
+        replicate(model, mesh)
+    state = create_train_state(model, cfg, mesh=mesh)
+    return model, state, make_train_step(model, LossComputer(cfg, mesh), "FreiHand", cfg)
+
+
+def dp_flagship_rank(rank: int, world: int, device, fsdp: int) -> dict:
+    """Phase 24 on one rank (a parallel.launch.spawn_ranks target): the
+    flagship train step on this rank's rows of the flagship batch (global
+    64) over the current process group; K1, K2 and K3 held against their
+    plain versions on this rank's inputs at step 1; its launches, median,
+    device busy time and peak memory; and, after the timed steps, whether
+    its flat parameters equal rank 0's bit for bit."""
+    import torch.distributed as dist
+
+    from hifihr_tpu_torch.parallel.mesh import make_mesh
+    from hifihr_tpu_torch.training.steps import make_sched
+
+    cfg = step_config()
+    mesh = make_mesh(fsdp, device)
+    _, state, step = _rank_state(cfg, device, mesh)
+    sched = make_sched(cfg, 0, device)
+    batch = mesh.shard_batch(flagship_batch(device))
+    what = f"rank {rank} of {world}"
+    with captured_kernel_inputs() as first:
+        state, d = step(state, batch, sched)
+    first_totals = [d["total"].item(), step(state, batch, sched)[1]["total"].item()]  # and allocator warm-up
+    held = {"K1": [k1_route(coef, bbox, f"the dp train step's hand, {what}", size)["route_ms"]
+                   for coef, bbox, size in first["K1"]],
+            "K2": check_k2_captures(first["K2"], f"the dp train step, {what}"),
+            "K3": [k3_launch(g, idx, n, f"the dp train step, {what}")["ms"] for g, idx, n in first["K3"]]}
+    first.clear()
+    reset_launches()
+    state, d = step(state, batch, sched)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    check_route_launches(launches, f"the dp train step, {what}")
+    check(launches == {"K1 msaa_raster": 1, "K2 gather_rows": 1, "K3 scatter_rows": 1, "K4 face_raster": 0},
+          f"K1, K2 and K3 once each in the dp train step, {what}: {launches}")
+    losses = {k: v.item() for k, v in d.items()}
+    check(set(losses) == set(FIRED) | {"skipped"} and all(np.isfinite(list(losses.values())))
+          and losses["skipped"] == 0.0, f"15 finite terms, not skipped, {what}: {losses}")
+    torch.cuda.reset_peak_memory_stats()
+    numbers = time_steps(lambda: step(state, batch, sched), B)  # images/s of the global batch
+    numbers["device_busy_ms"], numbers["launches_per_step"] = device_profile(lambda: step(state, batch, sched))
+    taken = 3 + 2 * STEPS + 3
+    check(int(state.step) == taken, f"every step of {what} updated (none skipped): {int(state.step)} of {taken}")
+    opt = state.optimizer
+    ref = opt.flat.clone()
+    dist.broadcast(ref, src=0, group=mesh.group)
+    numbers.update(rank=rank, world=world, fsdp=fsdp, backend=dist.get_backend(), launches=launches,
+                   losses=losses, held_ms=held, flat_equal_rank0=bool(torch.equal(ref, opt.flat)),
+                   total_final=d["total"].item(), totals_steps_1_2=first_totals)
+    print(f"dp train step, {what}: " + json.dumps(numbers))
+    return numbers
+
+
+def phase_dp_flagship() -> dict:
+    """Phase 24: the flagship train step at full width over two ranks that
+    share the one card under gloo (32 rows each), and over two cards under
+    NCCL (fsdp 1 and 2) where there are two."""
+    from hifihr_tpu_torch.parallel.launch import spawn_ranks
+
+    t0 = time.perf_counter()
+    out = {}
+    runs = [("gloo_one_card", "gloo", "cuda:0", 1)]
+    if torch.cuda.device_count() >= 2:
+        runs += [("nccl_two_cards", "nccl", None, 1), ("nccl_two_cards_fsdp2", "nccl", None, 2)]
+    else:
+        print(f"dp train step over two cards under NCCL (fsdp 1 and 2): not run, {torch.cuda.device_count()} card")
+    for key, backend, device, fsdp in runs:
+        ranks = spawn_ranks(dp_flagship_rank, 2, (fsdp,), backend=backend, device=device,
+                            timeout_s=DIST_TIMEOUT_S)
+        check(all(r["flat_equal_rank0"] for r in ranks), f"{key}: the ranks' flat parameters equal bit for bit")
+        check(all(r["total_final"] == ranks[0]["total_final"] for r in ranks), f"{key}: one global total")
+        out[key] = {"totals_steps_1_2": ranks[0]["totals_steps_1_2"],
+                    "median_ms": max(r["median_ms"] for r in ranks),
+                    "images_per_s_global": B / max(r["median_ms"] for r in ranks) * 1e3,
+                    "device_busy_ms_per_rank": [r["device_busy_ms"] for r in ranks],
+                    "launches_per_step_per_rank": [r["launches_per_step"] for r in ranks],
+                    "peak_mem_gib_per_rank": [r["peak_mem_gib"] for r in ranks],
+                    "kernel_launches_per_rank": [r["launches"] for r in ranks],
+                    "back_to_back_ms": max(r["back_to_back_ms"] for r in ranks)}
+        print(f"dp train (64) {key}: " + json.dumps(out[key]))
+        # every layout trains the same: the first step's global total within
+        # 1e-6 of the one-card run's, the second's within 1e-3 (it follows
+        # the first update, where Adam turns rounding-level gradients into
+        # +-lr moves: 1.2e-4 measured between gloo on one H100 and NCCL on two)
+        ref = out["gloo_one_card"]["totals_steps_1_2"]
+        got = out[key]["totals_steps_1_2"]
+        check(abs(got[0] - ref[0]) <= 1e-6 * abs(ref[0]) and abs(got[1] - ref[1]) <= 1e-3 * abs(ref[1]),
+              f"{key}'s totals at steps 1-2 within 1e-6 and 1e-3 of the one-card run's: {got} vs {ref}")
+    print(f"phase dp train: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def nccl_world1_rank(rank: int, world: int, device) -> dict:
+    """Phase 25 in its one process (a spawn_ranks target under NCCL): the
+    flagship train step without a process group, and the same step on the
+    one-rank NCCL mesh with every collective counted, under PyTorch's
+    deterministic algorithms (the renderer's index_add_ of vertex normals
+    otherwise sums with atomics, so two runs' terms can differ in their last
+    bits; a second run without a group shows that they do not). K3 sums with
+    fp32 atomics whatever that mode says, so two runs' gradients differ in
+    their last bits: the distributed step's gradient all-reduce is fed the
+    first run's gradient, and must return it bit for bit, and the update,
+    the loss terms and the BatchNorm statistics must then equal the first
+    run's bit for bit."""
+    import torch.distributed as dist
+
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+
+    from hifihr_tpu_torch.parallel.mesh import make_mesh
+    from hifihr_tpu_torch.training.steps import make_sched
+
+    cfg = step_config()
+    batch = flagship_batch(device)
+    sched = make_sched(cfg, 0, device)
+    model_a, state_a, step_a = _rank_state(cfg, device, None)
+    _, d_a = step_a(state_a, batch, sched)
+    grad_a = state_a.optimizer.grad.clone()
+    _, state_c, step_c = _rank_state(cfg, device, None)  # a second run: K3's run-to-run spread
+    _, d_c = step_c(state_c, batch, sched)
+    control = all(torch.equal(d_a[k], d_c[k]) for k in d_a)
+    spread = ((state_c.optimizer.grad - grad_a).norm() / grad_a.norm()).item()
+    del state_c, step_c
+    mesh = make_mesh(1, device)
+    model_b, state_b, step_b = _rank_state(cfg, device, mesh)
+    opt, reduce = state_b.optimizer, state_b.optimizer._reduced_grad
+    own = {}
+
+    def replay():
+        own["grad"] = opt.grad.clone()
+        opt.grad.copy_(grad_a)
+        g = reduce()
+        own["returned_equal"] = bool(torch.equal(g, grad_a))
+        return g
+
+    calls = []
+    all_reduce = dist.all_reduce
+
+    def counted(t, *a, **kw):
+        calls.append(t.numel())
+        return all_reduce(t, *a, **kw)
+
+    opt._reduced_grad, dist.all_reduce = replay, counted
+    try:
+        _, d_b = step_b(state_b, batch, sched)
+    finally:
+        opt._reduced_grad, dist.all_reduce = reduce, all_reduce
+    torch.cuda.synchronize()
+    stats = [k for k in model_a.state_dict() if k.endswith(("running_mean", "running_var"))]
+    sd_a, sd_b = model_a.state_dict(), model_b.state_dict()
+    rel = ((own["grad"] - grad_a).norm() / grad_a.norm()).item()
+    out = {"backend": dist.get_backend(), "world": dist.get_world_size(), "collectives": len(calls),
+           "gradient_all_reduce_ran": opt.n in calls, "all_reduce_returned_its_input": own["returned_equal"],
+           "terms_bit_equal": all(torch.equal(d_a[k], d_b[k]) for k in d_a) and set(d_a) == set(d_b),
+           "update_bit_equal": bool(torch.equal(state_a.optimizer.flat, opt.flat)),
+           "batchnorm_stats_bit_equal": all(torch.equal(sd_a[k], sd_b[k]) for k in stats),
+           "own_gradient_rel_l2_to_first_run": rel, "second_run_without_group_rel_l2": spread,
+           "second_run_without_group_terms_bit_equal": control}
+    print("NCCL world 1: " + json.dumps(out))
+    return out
+
+
+def phase_nccl_world1() -> dict:
+    """Phase 25: the flagship train step in a process group of one rank
+    under NCCL against the step without one (nccl_world1_rank)."""
+    from hifihr_tpu_torch.parallel.launch import spawn_ranks
+
+    t0 = time.perf_counter()
+    out = spawn_ranks(nccl_world1_rank, 1, backend="nccl", device="cuda:0", timeout_s=DIST_TIMEOUT_S)[0]
+    check(out["backend"] == "nccl" and out["world"] == 1, f"a process group of one rank under NCCL: {out}")
+    check(out["second_run_without_group_terms_bit_equal"], f"two runs without a group agree bit for bit: {out}")
+    check(out["gradient_all_reduce_ran"] and out["collectives"] >= 4,
+          f"the gradient all-reduce and the loss collectives ran: {out}")
+    check(out["all_reduce_returned_its_input"] and out["terms_bit_equal"] and out["update_bit_equal"]
+          and out["batchnorm_stats_bit_equal"], f"the NCCL world-1 step bit-equal to the step without it: {out}")
+    print(f"phase NCCL world 1: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def small_rank(rank: int, world: int, device, cfg, batch: dict, steps: int = 2) -> dict:
+    """Phase 26 on one rank (a spawn_ranks target, or in-process without a
+    process group): `steps` train steps of `cfg` on this rank's rows of the
+    host `batch`; every step's terms and the flat parameters."""
+    from hifihr_tpu_torch.parallel.mesh import make_mesh
+    from hifihr_tpu_torch.training.steps import make_sched
+
+    mesh = make_mesh(1, device)
+    _, state, step = _rank_state(cfg, device, mesh)
+    sched = make_sched(cfg, 0, device)
+    rows = mesh.shard_batch({k: v.to(device) for k, v in batch.items()})
+    losses = []
+    for _ in range(steps):
+        state, d = step(state, rows, sched)
+        losses.append({k: v.item() for k, v in d.items()})
+    return {"losses": losses, "flat": state.optimizer.flat.cpu(), "step": int(state.step)}
+
+
+def phase_invariance() -> dict:
+    """Phase 26: 1 rank against 2 ranks sharing the card under gloo, in fp32
+    (TF32 off) at res18, 32 px, a global batch of 8 varied rows, with the
+    flagship losses, open_2dj, both photometric triples and the rgb2hm
+    branch with hm_integral (every ratio term fires): every term at step 1
+    and the total at step 2 within 1e-4 relative, step 2's terms within
+    1e-2 (the first update is chaotic: tests/test_torch_parallel.py), the
+    parameters bit-equal across the ranks."""
+    from hifihr_tpu_torch.config import Config
+    from hifihr_tpu_torch.parallel.launch import spawn_ranks
+
+    t0 = time.perf_counter()
+    cfg = Config(**dict(SLICE_CFG, losses=LOSSES + ("open_2dj", "hm_integral"), rgb2hm=True))
+    batch = varied_slice_batch()
+    one = small_rank(0, 1, "cuda:0", cfg, batch)
+    two = spawn_ranks(small_rank, 2, (cfg, batch), backend="gloo", device="cuda:0", timeout_s=DIST_TIMEOUT_S)
+    check(torch.equal(two[0]["flat"], two[1]["flat"]), "the two ranks' parameters equal bit for bit")
+    err = {}
+    for step_i in range(2):
+        for k, v in one["losses"][step_i].items():
+            if k == "skipped":
+                check(v == 0.0 and all(r["losses"][step_i][k] == 0.0 for r in two), "no step skipped")
+                continue
+            check(v != 0.0, f"{k} fires")
+            err[f"step{step_i + 1}_{k}"] = max(abs(r["losses"][step_i][k] - v) / abs(v) for r in two)
+    worst1 = max(v for k, v in err.items() if k.startswith("step1"))
+    out = {"worst_step1_term": worst1, "step2_total": err["step2_total"],
+           "worst_step2_term": max(v for k, v in err.items() if k.startswith("step2")), "errors": err}
+    print("invariance, 1 rank against 2 (res18, fp32, 32 px, 8 varied rows): " + json.dumps(out))
+    check(worst1 <= INVARIANCE_RTOL and err["step2_total"] <= INVARIANCE_RTOL,
+          f"every step-1 term and the step-2 total within {INVARIANCE_RTOL}")
+    check(out["worst_step2_term"] <= 1e-2, "step 2's terms within 1e-2")
+    print(f"phase invariance: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def hourglass_share(model, batch: dict, busy_ms: float, train: bool, what: str) -> dict:
+    """The rgb2hm hourglass alone on the step's images (forward, and the
+    backward of its heatmaps' mean when `train`): device ms (torch.profiler)
+    and its share of the step's device busy time."""
+    imgs = batch["imgs"]
+
+    def run():
+        with torch.set_grad_enabled(train):
+            hms = model.rgb2hm(imgs)
+        if train:
+            sum(h.mean() for h in hms).backward()
+
+    model.rgb2hm.train(train)
+    dev = device_profile(run)[0]
+    out = {"device_ms": dev, "events_ms": time_ms(run, reps=3), "share_of_step": dev / busy_ms}
+    print(f"rgb2hm hourglass on {what}'s {imgs.shape[0]} images ({'forward + backward' if train else 'forward'}): "
+          + json.dumps(out))
+    return out
+
+
+def entry_rank(rank: int, world: int, device, argv: list) -> dict:
+    """Phase 28 on one rank (a spawn_ranks target): the entry's main with
+    `argv` in the process group the launcher started, the Trainer's epochs
+    and evals probed (trainer_probes) on this rank."""
+    from hifihr_tpu_torch import train as entry
+
+    with trainer_probes({}) as run:
+        entry.main(argv)
+    return {"epochs": {str(e): {k: v for k, v in r.items()} for e, r in run.get("epochs", {}).items()},
+            "evals": {str(e): {k: v for k, v in r.items()} for e, r in run.get("evals", {}).items()}}
+
+
+def phase_trainer_two_ranks() -> dict:
+    """Phase 28: configs/smoke_render.json (global batch 16, 256 samples a
+    split here, the encoder in fp32) through the entry at 2 ranks sharing
+    the card under gloo: 1 epoch and its eval, rank 0 alone writing; the
+    same checkpoint evaluated at 1 rank (metrics within 1e-5), and at 2
+    ranks through torchrun, the entry's launcher (`python -m
+    torch.distributed.run --standalone --nproc_per_node=2 -m
+    hifihr_tpu_torch.train ... --dist_backend gloo`); then a 1-rank resume
+    of the 2-rank checkpoint for a second epoch. The encoder runs in fp32
+    (TF32 off) here: in bf16, cuDNN's convs round a row differently in a
+    call of 8 rows (a rank's) than in one of 16, which moved the texture
+    metrics by up to 1.2e-4 and the median PA-EPE by 2.2e-4 (measured on an
+    H100), and would hide a wrong combination of the ranks' outputs."""
+    import tempfile
+
+    from hifihr_tpu_torch import train as entry
+    from hifihr_tpu_torch.parallel.launch import spawn_ranks
+
+    t0 = time.perf_counter()
+    over = dict(total_epochs=1, controlled_size=256, compute_dtype="float32")
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="hifihr_dp_trainer_") as tmp:
+        two = _smoke_render_copy(tmp, "two", **over)
+        t1 = time.perf_counter()
+        ranks = spawn_ranks(entry_rank, 2, (["--config_json", two, "--dist_backend", "gloo"],), backend="gloo",
+                            device="cuda:0", timeout_s=DIST_TIMEOUT_S)
+        out["two_rank_seconds"] = time.perf_counter() - t1
+        for r, run in enumerate(ranks):
+            for e, rec in run["epochs"].items():
+                check(all(rec["launches"][k] == rec["steps"] for k in ("K1 msaa_raster", "K2 gather_rows",
+                                                                      "K3 scatter_rows")),
+                      f"rank {r}'s epoch {e} launched K1, K2 and K3 once a step: {rec}")
+            out[f"rank{r}"] = run
+        log = _read_log(os.path.join(tmp, "two"))
+        epochs = [x for x in log if "train_loss" in x]
+        evals = [x["eval"] for x in log if "eval" in x]
+        steps = [x["step"] for x in log if "step" in x and "loss" in x]
+        check(len(epochs) == 1 and len(evals) == 1 and len(steps) == len(set(steps)),
+              f"rank 0 alone wrote train_log.jsonl: {len(epochs)} epoch and {len(evals)} eval records")
+        check(epochs[0]["skipped_steps"] == 0 and np.isfinite(epochs[0]["train_loss"]), f"{epochs[0]}")
+        with open(os.path.join(tmp, "two", "train.log")) as f:
+            check(f.read().count("best PA-MPJPE") == 1, "rank 0 alone wrote train.log")
+        model_dir = os.path.join(tmp, "two", "model")
+        one = _smoke_render_copy(tmp, "one", pretrain_model=model_dir, **over)
+        t1 = time.perf_counter()
+        single = entry.main(["--config_json", one, "--mode", "evaluation"])
+        out["one_rank_eval_seconds"] = time.perf_counter() - t1
+        metrics = sorted(k for k, v in single.items() if isinstance(v, float))
+        diff = {k: abs(evals[0][k] - single[k]) / max(abs(single[k]), 1e-12) for k in metrics}
+        out["eval_two_ranks"], out["eval_one_rank"], out["eval_rel_diff"] = evals[0], single, diff
+        check({"pa_mpjpe_cm", "tex_psnr"} <= set(metrics) and max(diff.values()) <= 1e-5,
+              f"the 2-rank eval equals the 1-rank eval of its checkpoint within 1e-5: {diff}")
+        viarun = _smoke_render_copy(tmp, "torchrun", pretrain_model=model_dir, **over)
+        t1 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node=2",
+                               "-m", "hifihr_tpu_torch.train", "--config_json", viarun, "--mode", "evaluation",
+                               "--dist_backend", "gloo"], cwd=os.path.dirname(os.path.abspath(__file__)),
+                              capture_output=True, text=True, timeout=DIST_TIMEOUT_S)
+        out["torchrun_eval_seconds"] = time.perf_counter() - t1
+        check(proc.returncode == 0, f"torchrun's 2-rank evaluation: rc {proc.returncode}\n{proc.stderr[-3000:]}")
+        tr = [x["eval"] for x in _read_log(os.path.join(tmp, "torchrun")) if "eval" in x]
+        tdiff = {k: abs(tr[0][k] - single[k]) / max(abs(single[k]), 1e-12) for k in metrics}
+        check(len(tr) == 1 and max(tdiff.values()) <= 1e-5, f"torchrun's 2-rank eval equals the 1-rank eval: {tdiff}")
+        resume = _smoke_render_copy(tmp, "resume", pretrain_model=model_dir, **dict(over, total_epochs=2))
+        t1 = time.perf_counter()
+        entry.main(["--config_json", resume])
+        out["one_rank_resume_seconds"] = time.perf_counter() - t1
+        rlog = _read_log(os.path.join(tmp, "resume"))
+        check([x["epoch"] for x in rlog if "train_loss" in x] == [1], "the 1-rank resume trained epoch 1")
+    print("trainer at 2 ranks (smoke_render, gloo, one card): " + json.dumps(out))
+    print(f"phase trainer at 2 ranks: {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def main() -> int:
@@ -2368,6 +2813,18 @@ def main() -> int:
          nimble_ssaa_small[:2])
     quad["nimble_ssaa"] = texture_quad(nimble_ssaa, ssaa_batch, "the NIMBLE SSAA train step")
 
+    # phase 27: the rgb2hm branch (the flagship plus the hourglass and its
+    # five losses) at 224^2, eval and train at batch 64
+    hm_cfg = dataclasses.replace(flagship, rgb2hm=True, losses=LOSSES + HM_LOSSES)
+    hm_small = small_check(rgb2hm=True, losses=LOSSES + HM_LOSSES)
+    hm_small = (hm_small[0], with_openpose(hm_small[1]), hm_small[2])
+    hm_batch = with_openpose(batch)
+    cell("rgb2hm_", "rgb2hm msaa", hm_cfg, hm_batch, hm_batch, full_size_check(hm_cfg), hm_small[:2],
+         fired=FIRED + HM_LOSSES)
+    # phases 24-26: the flagship train step over two ranks, a process group
+    # of one rank under NCCL, 1 rank against 2
+    multi = {"dp_train": phase_dp_flagship(), "nccl_world1": phase_nccl_world1(), "invariance": phase_invariance()}
+
     # phase 17: the Trainer through the entry, on configs/smoke_render.json
     trainer = phase_trainer(launches)
     # phase 18: the paper config through the entry, from a FreiHAND-format
@@ -2375,6 +2832,8 @@ def main() -> int:
     trainer.update(phase_real_data(launches))
     # phase 23: test-time MANO fitting in the Trainer's eval
     fitting = phase_fitting()
+    # phase 28: the Trainer at 2 ranks through the entry
+    multi["trainer_two_ranks"] = phase_trainer_two_ranks()
 
     table[0]["train_hand"] = hands[""]["K1"] + hands["ssaa_"]["K1"] + hands["effb3_"]["K1"]
     table[2]["train_hand"] = hands[""]["K3"] + hands["ssaa_"]["K3"] + hands["effb3_"]["K3"]
@@ -2407,6 +2866,10 @@ def main() -> int:
         if reading is not None:
             k["nimble"] = reading
     print("test-time fitting (no TPU kernel): " + json.dumps(fitting))
+    print("multi-rank training: " + json.dumps({k: v for k, v in multi.items() if k != "trainer_two_ranks"}))
+    for k in table:  # K1, K2 and K3 on each dp rank per step (phase 24)
+        k["launches_dp_train_step_per_rank"] = [r[k["name"]] for r in
+                                                multi["dp_train"]["gloo_one_card"]["kernel_launches_per_rank"]]
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -4,8 +4,7 @@ builds both packages.
 
 A value the port cannot run as the JAX package does raises
 NotImplementedError naming the feature; an unknown value raises ValueError,
-as in the JAX package. Fields marked "carried" are kept for the JSON schema
-and read by nothing in the port yet.
+as in the JAX package.
 """
 
 from __future__ import annotations
@@ -22,11 +21,13 @@ DATASETS = ("FreiHand", "RHD", "HO3D", "Dart")
 AA_MODES = ("msaa", "ssaa")
 BASE_LOSS_FNS = ("L1", "L2")
 OPTIMIZERS = ("Adam", "AdamW")
-# the names of losses/stack.py's branches that the port has. texture, mrgb,
-# ssim_tex and their _self forms are accepted and fire on presence
-# (segms_gt, texture_con in the batch), not by name, as in the JAX package
+# the names of losses/stack.py's branches: every name the JAX package's stack
+# reads. texture, mrgb, ssim_tex and their _self forms are accepted and fire
+# on presence (segms_gt, texture_con in the batch), not by name, as in the
+# JAX package
 PORTED_LOSSES = ("joint_2d", "joint_3d", "vert_3d", "bone_direc", "bone_direc_3d", "edge_length", "mscale",
-                 "scale", "open_2dj", "open_bone_direc", "tsa_poses", "tsa_pose", "perceptual", "sil", "iou",
+                 "scale", "open_2dj", "open_2dj_de", "joint_3d_norm", "open_bone_direc", "kp_cons",
+                 "hm_integral", "hm_integral_gt", "tsa_poses", "tsa_pose", "perceptual", "sil", "iou",
                  "triangle", "mshape", "mpose", "mtex",
                  "texture", "mrgb", "ssim_tex", "texture_self", "mrgb_self", "ssim_tex_self")
 STEPPED_LAMBDAS = ("j2d_gt", "shape", "pose", "tex_reg")
@@ -58,8 +59,10 @@ class Config:
     # NIMBLE's MSAA render samples its appearance at the face corners;
     # False samples the UV maps per fragment (the SSAA render always does)
     nimble_corner_tex: bool = True
-    rgb2hm: bool = False
+    rgb2hm: bool = False  # the stacked-hourglass heatmap branch
     freeze_hm_estimator: bool = False
+    # the ('data', 'fsdp') mesh's fsdp size: the optimizer state shards over
+    # fsdp ranks (hifihr_tpu_torch/parallel/mesh.py, training/train_state.py)
     fsdp: int = 1
     # encoder compute dtype; parameters stay float32
     compute_dtype: str = "bfloat16"
@@ -92,9 +95,9 @@ class Config:
     lambda_texture: float = 0.003
     lambda_silhouette: float = 0.005
     lambda_j2d: float = 1e-3
-    lambda_j2d_de: float = 1e-4  # carried: open_2dj_de is not ported
+    lambda_j2d_de: float = 1e-4
     lambda_j3d: float = 100.0
-    lambda_j3d_norm: float = 100.0  # carried: joint_3d_norm is not ported
+    lambda_j3d_norm: float = 100.0
     lambda_vert_3d: float = 100.0
     lambda_mrgb: float = 1e-3
     lambda_iou: float = 1e-3
@@ -102,8 +105,8 @@ class Config:
     lambda_bone_direc_3d: float = 0.1
     lambda_edge_len: float = 0.1
     lambda_percep: float = 1e-5
-    lambda_hm: float = 1e-3  # carried: hm_integral(_gt) is not ported
-    lambda_kp_cons: float = 2e-4  # carried: kp_cons is not ported
+    lambda_hm: float = 1e-3
+    lambda_kp_cons: float = 2e-4
     lambda_ssim_tex: float = 0.001
     lambda_scale: float = 100.0
     lambda_mscale: float = 0.1
@@ -172,15 +175,10 @@ class Config:
                 raise ValueError(f"unknown dataset {d!r}; valid: {DATASETS}")
         if self.aa_mode not in AA_MODES:
             raise NotImplementedError(f"aa_mode={self.aa_mode!r}: the port has {AA_MODES}")
-        unported = {
-            "four_channel": self.four_channel,  # the heatmap channel of the input
-            "rgb2hm": self.rgb2hm,  # the hourglass heatmap branch
-            "freeze_hm_estimator": self.freeze_hm_estimator,
-            "fsdp": self.fsdp != 1,  # the DP x FSDP mesh
-        }
-        for name, on in unported.items():
-            if on:
-                raise NotImplementedError(f"{name}={getattr(self, name)!r}: not ported")
+        if self.four_channel:  # the heatmap channel of the input
+            raise NotImplementedError("four_channel=True: not ported")
+        if self.fsdp < 1:
+            raise ValueError(f"fsdp={self.fsdp!r} must be at least 1")
         if self.compute_dtype not in ("bfloat16", "float32"):
             raise ValueError(f"compute_dtype={self.compute_dtype!r}")
         unported = sorted(set(self.losses + self.losses_frei + self.losses_rhd) - set(PORTED_LOSSES))

@@ -13,7 +13,9 @@ state dict of hifihr_tpu_torch.models.HiFiHR with the same configuration:
   (M, M, 12, O): (4, 4, 12, 64) for ResNet, (2, 2, 12, 40) for
   EfficientNet-b3); it is laid out again as the 2M x 2M / stride-2 kernel
   (O, 3, 2M, 2M) of hifihr_tpu_torch.networks.resnet.StemConv, which holds
-  every s2d tap, so fresh and trained kernels both convert exactly.
+  every s2d tap, so fresh and trained kernels both convert exactly. The
+  rgb2hm hourglass's stem (`rgb2hm.stem_conv`: (4, 4, 12, 64) and a bias)
+  converts by the same rule.
 
 The LightEstimator flattens in NHWC order in both packages, so its fc0 rows
 need no permutation. mano_new's heads (`beta_fc0/1`, `theta_fc0/1`, at the
@@ -28,7 +30,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-_STEMS = ("backbone.conv1", "backbone.conv_stem")  # an encoder's, alone or in the model
+# the s2d stems: an encoder's, alone or in the model, and the rgb2hm hourglass's
+_STEMS = ("backbone.conv1", "backbone.conv_stem", "rgb2hm.stem_conv")
 
 
 def stem_kernel_from_s2d(w2: np.ndarray) -> np.ndarray:

@@ -21,7 +21,7 @@ import collections
 import concurrent.futures
 import itertools
 import threading
-from typing import Iterable, Iterator, NamedTuple
+from typing import Callable, Iterable, Iterator, NamedTuple
 
 import numpy as np
 import torch
@@ -76,9 +76,14 @@ def claim(staged: Staged) -> dict:
 
 
 def prefetch_to_device(loader: Iterable[dict], device, depth: int = 3,
-                       transfer_workers: int = 2) -> Iterator[dict]:
+                       transfer_workers: int = 2, shard: Callable[[dict], dict] | None = None) -> Iterator[dict]:
     """Yields the loader's batches as tensors on `device`, in loader order,
-    loading `depth` batches ahead on `transfer_workers` threads.
+    loading `depth` batches ahead on `transfer_workers` threads. With
+    `shard` (a parallel/mesh.py Mesh's shard_batch) only this rank's rows
+    of each host batch are staged: every rank iterates the same seeded
+    loader, since one RandomState per dataset draws the augmentation of
+    all its samples, so the host decodes the whole global batch on every
+    rank.
 
     The loader's iterator is not thread-safe, so batches are taken from it
     under a lock, with a ticket taken under the same lock; the consumer
@@ -99,7 +104,7 @@ def prefetch_to_device(loader: Iterable[dict], device, depth: int = 3,
             except StopIteration:
                 return None, None
             ticket = next(counter)
-        return ticket, stage(batch, device, stream)
+        return ticket, stage(batch if shard is None else shard(batch), device, stream)
 
     try:
         for _ in range(depth):

@@ -8,7 +8,10 @@ render samples its PCA appearance at the face corners
 samples the UV maps. Outputs keep the JAX keys and layouts: images NHWC,
 re_img (B, S, S, 3), re_sil (B, S, S, 1) in {0, 255}, re_depth (B, S, S),
 maskRGBs. The encoder runs in `config.compute_dtype` (bf16 autocast on the
-card); everything after it runs in fp32.
+card); everything after it runs in fp32. With `rgb2hm` the stacked-hourglass
+branch (networks/hourglass.py) reads the raw images in fp32 and outputs each
+stack's soft-argmax joints in image pixels (`hm_j2d_list`) and the last
+stack's (`hm_j2d`).
 
 `hand_model="mano_new"` is the YTBHand baseline: ResNet-50 in fp32 (the JAX
 package builds that encoder without a dtype), two MLP heads for MANO's
@@ -32,6 +35,7 @@ from hifihr_tpu_torch.hand.mano import ManoLayer, regress_joints_frei
 from hifihr_tpu_torch.hand.nimble import NimbleLayer
 from hifihr_tpu_torch.networks.efficientnet import EffNetEncoder
 from hifihr_tpu_torch.networks.heads import HandEncoder, LightEstimator
+from hifihr_tpu_torch.networks.hourglass import NetHMHG, heatmaps_to_uv
 from hifihr_tpu_torch.networks.resnet import ResNetEncoder, StemConv
 from hifihr_tpu_torch.render.renderer import PhongRenderer, RenderSettings
 from hifihr_tpu_torch.render.shading import DirectionalLight
@@ -65,6 +69,8 @@ class HiFiHR(nn.Module):
                                         config.use_mean_shape, config.hand_model, tex_nc, config.render)
         if config.light_estimation:
             self.light_estimator = LightEstimator(backbone.low_channels)
+        if config.rgb2hm:  # reference rgb2hm (utils/train_utils.py:104-111)
+            self.rgb2hm = NetHMHG(config.image_size)
         settings = RenderSettings(image_size=config.image_size, aa_factor=config.aa_factor,
                                   aa_mode=config.aa_mode)
         if config.hand_model == "mano":
@@ -110,6 +116,14 @@ class HiFiHR(nn.Module):
 
         hand_params = self.hand_encoder(features)
         outputs = dict(hand_params)
+        if cfg.rgb2hm:
+            # each stack's soft-argmax uv at heatmap resolution, scaled to
+            # image pixels (compute_uv_from_integral, visualize_util.py:859-880)
+            hms = self.rgb2hm(images)
+            hm_scale = images.shape[1] / hms[-1].shape[1]
+            hm_uv = tuple(heatmaps_to_uv(h) * hm_scale for h in hms)
+            outputs["hm_j2d_list"] = hm_uv
+            outputs["hm_j2d"] = hm_uv[-1]
         if cfg.hand_model == "mano":
             mano_out = self.mano(hand_params["pose_params"], hand_params["shape_params"])
             verts = mano_out.verts

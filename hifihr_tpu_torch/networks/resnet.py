@@ -56,11 +56,12 @@ class StemConv(nn.Conv2d):
     The weight is stored 2M x 2M; forward computes the same sums in s2d
     form, a stride-1 M x M conv over 4C channels, which cuDNN runs faster
     than the 3-channel stride-2 conv for ResNet's stem
-    (`chip_smoke.py --profile`, PERF.md)."""
+    (`chip_smoke.py --profile`, PERF.md). The hourglass's stem has a bias
+    (`bias=True`), as its StemConvS2D(use_bias=True)."""
 
-    def __init__(self, cout: int = 64, kernel_size: int = 7, pad_lo: int = 3):
+    def __init__(self, cout: int = 64, kernel_size: int = 7, pad_lo: int = 3, bias: bool = False):
         self.taps, self.s2d_pad = s2d_geometry(kernel_size, pad_lo)
-        super().__init__(3, cout, 2 * self.taps, 2, 0, bias=False)
+        super().__init__(3, cout, 2 * self.taps, 2, 0, bias=bias)
 
     def forward(self, x):
         b, c, h, w = x.shape
@@ -70,7 +71,7 @@ class StemConv(nn.Conv2d):
         o, m = self.weight.shape[0], self.taps
         ws = self.weight.reshape(o, c, m, 2, m, 2).permute(0, 3, 5, 1, 2, 4).reshape(o, 4 * c, m, m)
         lo, hi = self.s2d_pad
-        return Fn.conv2d(Fn.pad(xs, (lo, hi, lo, hi)), ws)
+        return Fn.conv2d(Fn.pad(xs, (lo, hi, lo, hi)), ws, self.bias)
 
 
 class BasicBlock(nn.Module):

@@ -3,6 +3,19 @@
     python -m hifihr_tpu_torch.train --config_json configs/smoke_render.json \
         [--mode training|evaluation] [--device cuda|cpu]
 
+On N cards of one host (the JAX package's Trainer takes every local device
+by itself; here one process per card):
+
+    torchrun --nproc_per_node=N -m hifihr_tpu_torch.train \
+        --config_json ... [--dist_backend nccl|gloo]
+
+Under torchrun (WORLD_SIZE in the environment) each process starts the
+process group with `--dist_backend` (nccl by default; gloo for ranks that
+share a card, or with --device cpu) on cuda:LOCAL_RANK; the config's
+train_batch is the global batch and `fsdp` shards the optimizer state
+(hifihr_tpu_torch/parallel/mesh.py). A process group that the caller
+started already is used as it is. Without either, one card, as before.
+
 The JSON config selects the datasets, the supervision, the encoder, the hand
 model and the λ weights; the same entry trains and evaluates. It runs on
 CUDA unless `--device cpu` is given. The datasets come from the config's
@@ -104,20 +117,37 @@ def main(argv=None):
     parser.add_argument("--config_json", type=str, required=True)
     parser.add_argument("--mode", type=str, default=None, choices=["training", "evaluation"])
     parser.add_argument("--device", type=str, default=None, choices=["cuda", "cpu"],
-                        help="default: cuda")
+                        help="default: cuda (cuda:LOCAL_RANK under torchrun)")
+    parser.add_argument("--dist_backend", type=str, default="nccl", choices=["nccl", "gloo"],
+                        help="the process group's backend under torchrun (gloo for ranks that share a card)")
     args = parser.parse_args(argv)
+
+    import torch.distributed as dist
 
     from hifihr_tpu_torch import resolve_device
     from hifihr_tpu_torch.config import Config
     from hifihr_tpu_torch.models.hifihr import build_model
+    from hifihr_tpu_torch.parallel.mesh import init_distributed, make_mesh
     from hifihr_tpu_torch.training.loop import Trainer
 
-    device = resolve_device(args.device)
     config = Config.from_json(args.config_json)
+    started = False
+    if dist.is_initialized():
+        device = resolve_device(args.device or _rank_device())
+    elif "WORLD_SIZE" in os.environ:
+        device = init_distributed(args.dist_backend, device=args.device)
+        started = True
+    else:
+        device = resolve_device(args.device)
+    mesh = make_mesh(config.fsdp, device)
     os.makedirs(config.base_out_path, exist_ok=True)
     root = logging.getLogger()
+    # rank 0 alone logs and writes train.log; the other ranks' records go to
+    # a NullHandler (logging's module functions would otherwise give them a
+    # stderr handler of their own)
     handlers = [logging.StreamHandler(),
-                logging.FileHandler(os.path.join(config.base_out_path, "train.log"))]
+                logging.FileHandler(os.path.join(config.base_out_path, "train.log"))] if mesh.rank == 0 else [
+        logging.NullHandler()]
     for h in handlers:
         h.setFormatter(logging.Formatter(logging.BASIC_FORMAT))
         root.addHandler(h)
@@ -128,7 +158,7 @@ def main(argv=None):
         model = build_model(config, device=device, seed=config.seed)
         train_loader, val_loader = build_loaders(config)
         trainer = Trainer(config, model, train_loader, val_loader,
-                          eval_gt=load_eval_gt(config, val_loader), out_dir=config.base_out_path)
+                          eval_gt=load_eval_gt(config, val_loader), out_dir=config.base_out_path, mesh=mesh)
         mode = args.mode or (config.mode[0] if config.mode else "training")
         if mode == "evaluation":
             result = trainer.evaluate()
@@ -143,6 +173,18 @@ def main(argv=None):
         for h in handlers:
             root.removeHandler(h)
             h.close()
+        if started:
+            dist.destroy_process_group()
+
+
+def _rank_device() -> str:
+    """The card of this rank in a process group started by the caller:
+    cuda:LOCAL_RANK % device_count (LOCAL_RANK defaults to the rank)."""
+    import torch
+    import torch.distributed as dist
+
+    local = int(os.environ.get("LOCAL_RANK", dist.get_rank()))
+    return f"cuda:{local % max(torch.cuda.device_count(), 1)}"
 
 
 if __name__ == "__main__":

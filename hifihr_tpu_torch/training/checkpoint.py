@@ -15,6 +15,12 @@ weights alone, like the reference's partial loads
 The trained parameters are views into Adam's flat buffer
 (training/train_state.py), so a restore copies into them in place; it never
 rebinds a parameter.
+
+Over several ranks every rank calls `save`: under fsdp the moments are
+first gathered over the fsdp group, so a checkpoint holds them whole and
+loads at any world size and any fsdp; rank 0 alone writes, and the others
+wait for it at a barrier. Every rank restores, taking its own slice of the
+moments.
 """
 
 from __future__ import annotations
@@ -45,13 +51,26 @@ class CheckpointManager:
 
     def save(self, state: TrainState, epoch: int) -> str:
         opt = state.optimizer
+        mu, nu = opt.full_moments()
+        tags = ["latest"] if self.save_mode == "only_latest" else [str(epoch), "latest"]
+        mesh = opt.mesh
+        if mesh is not None and mesh.rank != 0:
+            mesh.barrier()
+            return self._path(tags[0])
         payload = {
             "model": {k: v.detach().cpu() for k, v in state.model.state_dict().items()},
-            "optimizer": {"mu": opt.mu.cpu(), "nu": opt.nu.cpu(), "count": opt.count.cpu(),
+            "optimizer": {"mu": mu.cpu(), "nu": nu.cpu(), "count": opt.count.cpu(),
                           "layout": _layout(state)},
             "epoch": int(epoch),
         }
-        tags = ["latest"] if self.save_mode == "only_latest" else [str(epoch), "latest"]
+        try:
+            self._write(payload, tags, epoch)
+        finally:  # the other ranks wait for this write, whatever its outcome
+            if mesh is not None:
+                mesh.barrier()
+        return self._path(tags[0])
+
+    def _write(self, payload: dict, tags: list, epoch: int) -> None:
         for tag in tags:
             path = self._path(tag)
             torch.save(payload, path + ".tmp")
@@ -68,7 +87,6 @@ class CheckpointManager:
                     continue
                 if e != epoch and e % 20 != 0:
                     os.remove(os.path.join(self.directory, name))
-        return self._path(tags[0])
 
     def _load(self, tag, device) -> dict:
         return torch.load(self._path(tag), map_location=device, weights_only=True)
@@ -98,7 +116,6 @@ class CheckpointManager:
                 t.copy_(model[name])
         opt, saved = state.optimizer, stored["optimizer"]
         if saved["layout"] == _layout(state):
-            opt.mu.copy_(saved["mu"])
-            opt.nu.copy_(saved["nu"])
+            opt.load_moments(saved["mu"], saved["nu"])
             opt.count.copy_(saved["count"])
         return state, int(stored.get("epoch", 0))

@@ -16,6 +16,18 @@ from the step count. Eval keeps its results on the device and reads them
 back once, at its end; with `test_refinement` (MANO only, as in the JAX
 package) each eval batch's MANO parameters are refined by the test-time fit
 (training/fitting.py) and its PA-MPJPE reported as pa_mpjpe_refined_cm.
+
+Over several ranks (parallel/mesh.py; `python -m hifihr_tpu_torch.train`
+under torchrun makes the process group) the Trainer trains on the global
+batch `config.train_batch`: every rank iterates the same seeded loader and
+stages only its rows to its device, and the train step reduces the loss
+terms, the skip guard and the gradient over the ranks. Eval pads each host
+batch to val_batch and to a multiple of the world size, as the JAX package
+pads for its devices; each rank evaluates (and fits) its rows, and the
+outputs are summed over the ranks from zero-filled buffers of the whole
+batch, so every rank computes the metrics of a one-rank eval of the same
+weights. Rank 0 alone writes train_log.jsonl, TensorBoard, the demo dumps,
+the 2D-error reports and the submissions.
 """
 
 from __future__ import annotations
@@ -29,10 +41,12 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from hifihr_tpu_torch.config import Config
 from hifihr_tpu_torch.data.pipeline import claim, prefetch_to_device, stage
 from hifihr_tpu_torch.losses.stack import LossComputer
+from hifihr_tpu_torch.parallel.mesh import Mesh, make_mesh, replicate
 from hifihr_tpu_torch.training import metrics as M
 from hifihr_tpu_torch.training.checkpoint import CheckpointManager
 from hifihr_tpu_torch.training.steps import make_eval_step, make_sched, make_train_step
@@ -40,16 +54,18 @@ from hifihr_tpu_torch.training.train_state import create_train_state
 from hifihr_tpu_torch.utils.meters import AverageMeter
 
 
-def _pad_batch(batch: dict, pad_to: int | None) -> tuple[dict, int]:
-    """The batch's arrays padded to `pad_to` rows by repeating the last row,
-    and the number of real rows: the JAX package pads a ragged last eval
-    batch so, and trims the predictions back; its texture metrics average
+def _pad_batch(batch: dict, pad_to: int | None, multiple: int = 1) -> tuple[dict, int]:
+    """The batch's arrays padded to `pad_to` rows, and then to a multiple of
+    `multiple` (the world size), by repeating the last row, and the number
+    of real rows: the JAX package pads a ragged last eval batch so for its
+    devices, and trims the predictions back; its texture metrics average
     over the padded batch, and so do these."""
     arrs = {k: np.asarray(v) for k, v in batch.items() if not isinstance(v, str)}
     n = arrs["imgs"].shape[0] if "imgs" in arrs else next(
         v.shape[0] for v in arrs.values() if v.ndim
     )
-    pad = max(pad_to or 0, n) - n
+    target = max(pad_to or 0, n)
+    pad = target + (-target) % multiple - n
     if pad:
         arrs = {
             k: (np.concatenate([v, np.repeat(v[-1:], pad, axis=0)])
@@ -67,13 +83,19 @@ def _host(tree: dict, n: int | None = None) -> dict:
 
 class Trainer:
     def __init__(self, config: Config, model, train_loader, val_loader=None,
-                 eval_gt: dict | None = None, out_dir: str | None = None):
+                 eval_gt: dict | None = None, out_dir: str | None = None, mesh: Mesh | None = None):
         """`model` is on its device (models/hifihr.py::build_model), which
         the Trainer runs on; `eval_gt` is {'xyz': (N, 21, 3), 'verts':
-        (N, 778, 3)} in the val loader's order."""
+        (N, 778, 3)} in the val loader's order. `mesh` defaults to that of
+        the current process group with `config.fsdp` (one rank without
+        one)."""
         self.config = config
         self.model = model
         self.device = next(model.parameters()).device
+        self.mesh = mesh if mesh is not None else make_mesh(config.fsdp, self.device)
+        if config.train_batch % self.mesh.world:
+            raise ValueError(f"train_batch={config.train_batch} does not split over {self.mesh.world} ranks")
+        self.lead = self.mesh.rank == 0  # the rank that writes
         self.train_loader = train_loader
         self.val_loader = val_loader
         self.eval_gt = eval_gt
@@ -83,7 +105,7 @@ class Trainer:
         self.log_path = os.path.join(self.out_dir, "train_log.jsonl")
         self._tb = None
         self._tb_step = 0
-        if config.is_write_tb:  # reference write_to_tb (traineval_util:488-502)
+        if config.is_write_tb and self.lead:  # reference write_to_tb (traineval_util:488-502)
             try:
                 from torch.utils.tensorboard import SummaryWriter
 
@@ -106,8 +128,10 @@ class Trainer:
         # draw also moves the loader to its next epoch, whose shuffle the
         # first train epoch then takes, in both packages
         sample = next(iter(train_loader))
-        self.state = create_train_state(model, config, sample, steps_per_epoch=max(len(train_loader), 1))
-        self.loss_computer = LossComputer(config)
+        replicate(model, self.mesh)
+        self.state = create_train_state(model, config, sample, steps_per_epoch=max(len(train_loader), 1),
+                                        mesh=self.mesh)
+        self.loss_computer = LossComputer(config, self.mesh)
         self._train_steps: dict = {}
         self._eval_steps: dict = {}
         self._lpips = None
@@ -153,6 +177,8 @@ class Trainer:
         return self._lpips
 
     def _log(self, record: dict):
+        if not self.lead:
+            return
         with open(self.log_path, "a") as f:
             f.write(json.dumps(record) + "\n")
         if self._tb is not None:
@@ -173,14 +199,16 @@ class Trainer:
         last_sync_t, last_sync_i = t_epoch, -1
         loss_dic = None
         i = -1
-        for i, dev_batch in enumerate(prefetch_to_device(self.train_loader, self.device)):
+        shard = self.mesh.shard_batch if self.mesh.distributed else None
+        for i, dev_batch in enumerate(prefetch_to_device(self.train_loader, self.device, shard=shard)):
             dat_name = dev_batch.pop("dataset", "FreiHand")
             step = self._step_for(dat_name, train=True)
             self.state, loss_dic = step(self.state, dev_batch, sched)
-            n_img += dev_batch["imgs"].shape[0]
+            n_img += dev_batch["imgs"].shape[0] * self.mesh.world
             # mid-training demo dumps (reference train_hrnet.py:167, every
-            # demo_freq batches; one eval forward and a readback each)
-            if self.config.demo_freq and i % self.config.demo_freq == 0 and i > 0:
+            # demo_freq batches; one eval forward of rank 0's rows and a
+            # readback each)
+            if self.config.demo_freq and i % self.config.demo_freq == 0 and i > 0 and self.lead:
                 out = self._step_for(dat_name, train=False)(dev_batch)
                 self._demo_dump(os.path.join(self.out_dir, "pic", f"train_e{epoch}_i{i}.png"),
                                 _host(dev_batch), _host(out), epoch)
@@ -209,6 +237,21 @@ class Trainer:
         self._log(rec)
         return rec
 
+    def _gather(self, out: dict, n: int) -> dict:
+        """The outputs of the whole eval batch of n rows from each rank's
+        outputs of its rows: the rows placed in a zero-filled buffer of all
+        n, summed over the ranks in one all-reduce."""
+        if not self.mesh.distributed:
+            return out
+        keys = list(out)
+        flat = [out[k].reshape(out[k].shape[0], -1).float() for k in keys]
+        widths = [f.shape[1] for f in flat]
+        buf = torch.zeros((n, sum(widths)), device=self.device)
+        buf[self.mesh.rows(n)] = torch.cat(flat, 1)
+        dist.all_reduce(buf, group=self.mesh.group)
+        return {k: part.reshape(n, *out[k].shape[1:]).to(out[k].dtype)
+                for k, part in zip(keys, buf.split(widths, 1))}
+
     def _refine(self, out: dict, batch: dict) -> tuple:
         """Test-time MANO fitting (training/fitting.py, the reference's
         mano_fitting): the predicted MANO parameters refined against the
@@ -220,7 +263,9 @@ class Trainer:
 
         if self._fit is None:
             mano = ManoLayer(ncomps=self.config.ncomps[1] - 3).to(self.device)
-            self._fit = mano, make_fitting_fn(mano, device=self.device)
+            # a rank fits its 1/world of the rows: its loss weighs them as
+            # the whole batch's mean would
+            self._fit = mano, make_fitting_fn(mano, device=self.device, loss_scale=1.0 / self.mesh.world)
         mano, fit = self._fit
         target = out.get("hm_j2d", batch.get("j2d_gt", out.get("j2d")))
         conf = torch.ones((*target.shape[:2], 1), dtype=target.dtype, device=target.device)
@@ -257,7 +302,7 @@ class Trainer:
         def produce():
             try:
                 for batch in self.val_loader:
-                    arrs, n = _pad_batch(batch, self.config.val_batch)
+                    arrs, n = _pad_batch(batch, self.config.val_batch, self.mesh.world)
                     q.put((batch.get("dataset", "FreiHand"), n, stage(arrs, self.device, stream)))
                 q.put(None)
             except Exception as exc:  # noqa: BLE001 - handed to the consumer, which raises it
@@ -275,11 +320,16 @@ class Trainer:
             i += 1
             dat_name, n_valid, staged = item
             dev_batch = claim(staged)
-            out = self._step_for(dat_name, train=False)(dev_batch)
+            n_pad = dev_batch["imgs"].shape[0]
+            rows = self.mesh.rows(n_pad)
+            mine = {k: v[rows] for k, v in dev_batch.items()}
+            out = self._step_for(dat_name, train=False)(mine)
             n_valids.append(n_valid)
             if refine:  # stays on the device until the readback at the end
-                xyz_refined.append(self._refine(out, dev_batch)[0][:n_valid])
-            if i == 0:  # demo dump (reference displadic every demo_freq)
+                refined = self._gather({"joints": self._refine(out, mine)[0]}, n_pad)["joints"]
+                xyz_refined.append(refined[:n_valid])
+            out = self._gather(out, n_pad)
+            if i == 0 and self.lead:  # demo dump (reference displadic every demo_freq)
                 self._demo_dump(os.path.join(self.out_dir, "pic", f"eval_{epoch}.png"),
                                 _host(dev_batch, n_valid), _host(out, n_valid), epoch)
             xyz_pred.append(out["joints"][:n_valid])
@@ -306,7 +356,7 @@ class Trainer:
         xyz_np, verts_np = xyz_dev.cpu().numpy(), verts_dev.cpu().numpy()
         result = {"epoch": epoch,
                   "split": "val" if self.config.is_val else "evaluation"}
-        if self.config.save_2d and any(err_2d.values()):
+        if self.config.save_2d and any(err_2d.values()) and self.lead:
             from hifihr_tpu_torch.utils.visualize import save_2d_error_report
 
             named = {k: torch.cat(v).cpu().numpy() for k, v in err_2d.items() if v}
@@ -337,7 +387,7 @@ class Trainer:
                 result[f"tex_{k}"] = float(np.mean(per_batch))
         # HO3D always dumps the submission file; config.save_3d extends the
         # dump to every dataset (reference train_hrnet.py:119,200,280-283)
-        if dat_name == "HO3D" or self.config.save_3d:
+        if (dat_name == "HO3D" or self.config.save_3d) and self.lead:
             from hifihr_tpu_torch.training.submission import dump_predictions
 
             result["pred_json"] = dump_predictions(

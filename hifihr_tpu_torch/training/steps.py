@@ -8,6 +8,14 @@ the new BatchNorm running stats, and never makes the host wait for the card.
 make_eval_step: image -> joints, mesh, 2D joints and the rendered image,
 silhouette and depth. Each step sets the model's mode on every call, so the
 two can share one model.
+
+Over several ranks (the loss computer's parallel/mesh.py Mesh; the model
+placed on it by `replicate`, the state made with it) each rank steps on its
+rows of the global batch: its loss terms are its shares of the global ones,
+one all-reduce of the stacked terms gives every rank the global terms and
+total, the skip guard decides on that total (so all ranks skip or step
+together, still with no host sync), and the optimizer sums the flat
+gradient over the ranks before it updates.
 """
 
 from __future__ import annotations
@@ -15,6 +23,7 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
+import torch.distributed as dist
 
 from hifihr_tpu_torch import resolve_device
 from hifihr_tpu_torch.config import Config, STEPPED_LAMBDAS
@@ -23,7 +32,7 @@ from hifihr_tpu_torch.models.hifihr import HiFiHR, attach_j2d
 from hifihr_tpu_torch.training.train_state import TrainState
 
 EVAL_KEYS = ("joints", "mano_verts", "j2d", "re_img", "re_sil", "re_depth",
-             "pose_params", "shape_params", "trans", "scale")
+             "pose_params", "shape_params", "trans", "scale", "hm_j2d")
 
 
 def normalize_batch(batch: dict) -> dict:
@@ -76,20 +85,33 @@ def make_train_step(model: HiFiHR, loss_computer: LossComputer, dat_name: str,
                     config: Config) -> Callable:
     """Returns train_step(state, batch, sched) -> (state, loss_dict). `state`
     is updated in place and returned; loss_dict holds the fired terms,
-    'total' and 'skipped' (1.0 for a skipped step), as device scalars."""
+    'total' and 'skipped' (1.0 for a skipped step), as device scalars; over
+    several ranks `batch` is this rank's rows and the terms are global."""
     del config  # the model and the loss computer carry it; kept for the JAX signature
     set_fp32_numerics()
+    mesh = loss_computer.mesh
+    if mesh is not None and mesh.world > 1:
+        from hifihr_tpu_torch.networks.batchnorm import FlaxBatchNorm
+
+        if any(m.batch_group is None for m in model.modules() if isinstance(m, FlaxBatchNorm)):
+            raise ValueError("the model's BatchNorms are not on the mesh: place it with parallel.mesh.replicate")
 
     def train_step(state: TrainState, batch: dict, sched: dict):
+        if state.optimizer.mesh is not mesh:
+            raise ValueError("the train state and the loss computer were made for different meshes")
         model.train()
         batch = _root_center_targets(normalize_batch(batch), dat_name)
         state.optimizer.zero_grad()
         loss_dic = loss_computer(batch, _forward(model, batch, dat_name, train=True), dat_name, sched)
+        loss_dic["total"].backward()
+        loss_dic = {k: v.detach() for k, v in loss_dic.items()}
+        if mesh is not None and mesh.distributed:  # the shares summed into the global terms
+            terms = torch.stack(list(loss_dic.values()))
+            dist.all_reduce(terms, group=mesh.group)
+            loss_dic = dict(zip(loss_dic, terms.unbind()))
         total = loss_dic["total"]
-        total.backward()
         ok = torch.isfinite(total) & (total > 1e-10)
         state.optimizer.step(ok)
-        loss_dic = {k: v.detach() for k, v in loss_dic.items()}
         loss_dic["skipped"] = 1.0 - ok.float()
         return state, loss_dic
 

@@ -292,13 +292,23 @@ def test_unfired_loss_warns_as_jax_does(monkeypatch):
 
 
 def test_unported_loss_name_raises():
-    """The photometric names (texture, mrgb, ssim_tex and their _self forms)
-    are accepted, as JAX's Config accepts them: those triples fire on
-    presence. A branch of JAX's stack that the port does not have raises."""
+    """Every loss name that JAX's stack reads (each `"<name>" in loss_used`
+    of hifihr_tpu/losses/stack.py) is accepted in every loss field, and so
+    are the photometric names (texture, mrgb, ssim_tex and their _self
+    forms), as JAX's Config accepts them: those triples fire on presence. A
+    name that no branch of either stack reads still raises."""
+    import re
+
+    import hifihr_tpu.losses.stack as jstack
+
+    with open(jstack.__file__) as f:
+        read = set(re.findall(r'"(\w+)" in loss_used', f.read()))
+    assert {"open_2dj_de", "joint_3d_norm", "kp_cons", "hm_integral", "hm_integral_gt"} <= read
     photometric = ("texture", "mrgb", "ssim_tex", "texture_self", "mrgb_self", "ssim_tex_self")
+    assert read <= set(PORTED_LOSSES) and set(photometric) <= set(PORTED_LOSSES)
     for field in ("losses", "losses_frei", "losses_rhd"):
         Config(**{field: photometric})
-        for name in ("open_2dj_de", "joint_3d_norm", "kp_cons", "hm_integral", "hm_integral_gt"):
-            with pytest.raises(NotImplementedError):
-                Config(**{field: (name,)})
+        Config(**{field: tuple(sorted(read))})
+        with pytest.raises(NotImplementedError):
+            Config(**{field: ("no_such_loss",)})
     Config(losses=PORTED_LOSSES)  # every ported name is accepted

@@ -41,11 +41,13 @@ def test_config_from_one_dict():
     defaults = Config()
     for k in d:
         assert getattr(defaults, k) == getattr(JConfig(), k)
-    # the model variants the port runs since mano_new and NIMBLE's UV and SSAA paths came
+    # the model variants the port runs since mano_new and NIMBLE's UV and
+    # SSAA paths came, and since the rgb2hm branch and the fsdp mesh came
     for good in (dict(hand_model="mano_new"), dict(hand_model="nimble", aa_mode="ssaa"),
-                 dict(hand_model="nimble", nimble_corner_tex=False), dict(test_refinement=True)):
+                 dict(hand_model="nimble", nimble_corner_tex=False), dict(test_refinement=True),
+                 dict(fsdp=2), dict(rgb2hm=True), dict(freeze_hm_estimator=True)):
         assert Config(**good).to_dict() == JConfig(**good).to_dict()
-    for bad in (dict(aa_mode="fxaa"), dict(rgb2hm=True), dict(four_channel=True), dict(fsdp=2)):
+    for bad in (dict(aa_mode="fxaa"), dict(four_channel=True)):
         with pytest.raises(NotImplementedError):
             Config(**bad)
 

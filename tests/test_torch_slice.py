@@ -164,7 +164,9 @@ def test_port_imports_no_jax():
         "       'hifihr_tpu_torch.data.cache', 'hifihr_tpu_torch.data.freihand',\n"
         "       'hifihr_tpu_torch.data.rhd', 'hifihr_tpu_torch.data.ho3d',\n"
         "       'hifihr_tpu_torch.data.dart', 'hifihr_tpu_torch.data.freihand_tree',\n"
-        "       'hifihr_tpu_torch.render.texture', 'hifihr_tpu_torch.training.fitting'}\n"
+        "       'hifihr_tpu_torch.render.texture', 'hifihr_tpu_torch.training.fitting',\n"
+        "       'hifihr_tpu_torch.parallel.mesh', 'hifihr_tpu_torch.parallel.launch',\n"
+        "       'hifihr_tpu_torch.networks.hourglass'}\n"
         "assert new <= set(mods) and len(mods) >= 40, mods\n"
         "print(len(mods))\n"
     )

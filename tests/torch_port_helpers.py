@@ -289,3 +289,136 @@ def nimble_step_runs(cfg: dict, batch: dict) -> tuple:
     port_run = {"eval": teval, "loss": [floats(d1), floats(d2)], "grads": grads, "faces": own_faces,
                 "step": int(tstate.step)}
     return jax_run, port_run
+
+
+def dp_train_rank(rank: int, world: int, device, cfg: dict, batch: dict, fsdp: int = 1, steps: int = 2,
+                  ckpt_dir: str | None = None, state_dict: dict | None = None, faces: list | None = None) -> dict:
+    """`steps` train steps of the port on this rank's rows of the global
+    `batch` (numpy), from build_model's seeded init (or `state_dict`), over the mesh of the
+    current process group (the one-rank mesh when there is none): a
+    parallel.launch.spawn_ranks target. With `faces`, each step's MSAA face
+    choice (face_id, coverage) of the whole batch, the step renders this
+    rank's rows of that choice and returns its own under "own_faces".
+    Returns every step's loss terms, the flat parameters (before and after),
+    both moments whole and the step count; saves a checkpoint (epoch 0)
+    into `ckpt_dir` when one is given. Imports no JAX."""
+    import torch
+
+    from hifihr_tpu_torch.config import Config
+    from hifihr_tpu_torch.losses.stack import LossComputer
+    from hifihr_tpu_torch.models.hifihr import build_model
+    from hifihr_tpu_torch.parallel.mesh import make_mesh, replicate
+    from hifihr_tpu_torch.training.checkpoint import CheckpointManager
+    from hifihr_tpu_torch.training.steps import make_sched, make_train_step
+    from hifihr_tpu_torch.training.train_state import create_train_state
+
+    config = Config(**cfg)
+    mesh = make_mesh(fsdp, device)
+    model = build_model(config, device=device, seed=0)
+    if state_dict is not None:
+        model.load_state_dict(state_dict, strict=True)
+    model = replicate(model, mesh)
+    own = []
+    if faces is not None:
+        select = model.renderer.select_faces
+        rows_of = mesh.rows(len(batch["imgs"]))
+
+        def given(verts_cam, K):
+            own.append(select(verts_cam, K)[0].cpu())
+            fid, cov = faces[len(own) - 1]
+            return torch.tensor(fid[rows_of], device=device), torch.tensor(cov[rows_of], device=device)
+
+        model.renderer.select_faces = given
+    state = create_train_state(model, config, mesh=mesh)
+    step = make_train_step(model, LossComputer(config, mesh), "FreiHand", config)
+    sched = make_sched(config, 0, device=device)
+    rows = mesh.shard_batch({k: torch.tensor(v, device=device) for k, v in batch.items()})
+    flat0 = state.optimizer.flat[:state.optimizer.n].cpu().clone()
+    losses = []
+    for _ in range(steps):
+        state, d = step(state, rows, sched)
+        losses.append({k: float(v) for k, v in d.items()})
+    opt = state.optimizer
+    mu, nu = opt.full_moments()
+    if ckpt_dir is not None:
+        CheckpointManager(ckpt_dir, "only_latest").save(state, 0)
+    return {"losses": losses, "flat0": flat0, "flat": opt.flat[:opt.n].cpu().clone(), "mu": mu.cpu().clone(),
+            "nu": nu.cpu().clone(), "step": int(state.step), "own_faces": own}
+
+
+def varied_batch(batch: int, size: int, seed: int = 0) -> dict:
+    """The slice tests' batch (test_torch_train_slice.py) with rows that
+    differ in every key, openpose pseudo-labels and their confidences
+    (`open_2dj`, `open_2dj_con`) included, so that no per-rank reduction
+    that is wrong can cancel out between the ranks."""
+    rng = np.random.RandomState(seed)
+    root = np.stack([rng.uniform(-0.02, 0.02, batch), rng.uniform(-0.02, 0.02, batch),
+                     rng.uniform(0.45, 0.6, batch)], -1)[:, None].astype(np.float32)
+    K = fake_K(batch, size)
+    K[:, :2, :2] *= rng.uniform(0.9, 1.1, (batch, 1, 1)).astype(np.float32)  # the focal length
+    return {
+        "imgs": rng.rand(batch, size, size, 3).astype(np.float32),
+        "Ks": K,
+        "root_xyz": root,
+        "joints": (rng.randn(batch, 21, 3) * 0.03 + root).astype(np.float32),
+        "j2d_gt": (rng.rand(batch, 21, 2) * size).astype(np.float32),
+        "verts": (rng.randn(batch, 778, 3) * 0.03 + root).astype(np.float32),
+        "segms_gt": (rng.rand(batch, size, size) > rng.uniform(0.3, 0.8, (batch, 1, 1))).astype(np.float32),
+        "texture_con": rng.uniform(0.2, 1.0, batch).astype(np.float32),
+        "open_2dj": (rng.rand(batch, 21, 2) * size).astype(np.float32),
+        "open_2dj_con": rng.uniform(0.0, 1.0, (batch, 21, 1)).astype(np.float32),
+        "scales": rng.uniform(0.025, 0.032, batch).astype(np.float32),
+    }
+
+
+def bn_rank(rank: int, world: int, device, x, g, momentum: float = 0.9) -> dict:
+    """A flax-semantics BatchNorm2d (seeded scale and bias) in train mode on
+    this rank's rows of `x` over the current process group, with `g` (this
+    rank's rows of the output's gradient) backpropagated: the output, the
+    running statistics, the input's gradient and the scale's and bias's
+    gradients summed over the ranks. A parallel.launch.spawn_ranks target;
+    at one rank without a process group, the native path."""
+    import torch
+    import torch.distributed as dist
+
+    from hifihr_tpu_torch.networks.batchnorm import BatchNorm2d
+    from hifihr_tpu_torch.parallel.mesh import make_mesh, replicate
+
+    mesh = make_mesh(1, device)
+    bn = BatchNorm2d(x.shape[1], momentum=momentum)
+    with torch.no_grad():
+        gen = torch.Generator().manual_seed(0)
+        bn.weight.copy_(torch.rand(x.shape[1], generator=gen) + 0.5)
+        bn.bias.copy_(torch.randn(x.shape[1], generator=gen))
+    bn = replicate(bn.to(device), mesh).train()
+    rows = mesh.rows(x.shape[0])
+    xr = x[rows].clone().to(device).requires_grad_()
+    out = bn(xr)
+    out.backward(g[rows].to(device))
+    pg = torch.cat([bn.weight.grad, bn.bias.grad])
+    if mesh.distributed:
+        dist.all_reduce(pg, group=mesh.group)
+    return {"out": out.detach().cpu(), "grad_x": xr.grad.cpu(), "grad_params": pg.cpu(),
+            "running_mean": bn.running_mean.cpu(), "running_var": bn.running_var.cpu()}
+
+
+def entry_rank(rank: int, world: int, device, argv: list):
+    """`python -m hifihr_tpu_torch.train` with `argv` in this rank, in the
+    process group the launcher started: a parallel.launch.spawn_ranks
+    target. Returns what main returns. Imports no JAX."""
+    from hifihr_tpu_torch.train import main
+
+    del rank, world, device
+    return main(argv)
+
+
+def dp_suite_rank(rank: int, world: int, device, cfg: dict, batch: dict, ckpt_dir: str,
+                  nan_batch: dict | None = None) -> dict:
+    """dp_train_rank three times in one process group: two steps at fsdp 1
+    ("dp"), two at fsdp 2 saving a checkpoint into `ckpt_dir` ("fsdp"),
+    and, with `nan_batch`, one on that batch ("skip"); one spawn for all."""
+    out = {"dp": dp_train_rank(rank, world, device, cfg, batch),
+           "fsdp": dp_train_rank(rank, world, device, cfg, batch, fsdp=2, ckpt_dir=ckpt_dir)}
+    if nan_batch is not None:
+        out["skip"] = dp_train_rank(rank, world, device, cfg, nan_batch, steps=1)
+    return out
