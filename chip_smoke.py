@@ -239,11 +239,12 @@ over a few eval steps and a few train steps of every cell. Phases:
      within 1e-4 of the image size; the hourglass's gradients within 5e-2,
      JAX's own one-ulp move at 32 px, tests/test_torch_rgb2hm.py), and the
      hourglass's device ms and share of each step
- 28. configs/smoke_render.json (256 samples a split, the encoder in fp32)
-     through the entry at two ranks sharing the card under gloo: one epoch
-     and its eval (K1, K2, K3 once a step on each rank), rank 0 alone
-     writing; its checkpoint evaluated at one rank and through torchrun at
-     two (metrics within 1e-5), and resumed at one rank
+ 28. configs/smoke_render.json (256 samples a split) through the entry
+     at two ranks sharing the card under gloo: one epoch and its eval (K1,
+     K2, K3 once a step on each rank; each rank evaluates whole batches),
+     rank 0 alone writing; its checkpoint evaluated at one rank and through
+     torchrun at two (metrics within 1e-5, and whether equal to the bit),
+     and resumed at one rank
 
 The `{"kernels": [...]}` line also holds every kernel's launches per step
 of the new cells (`launches_mano_new_*`, `launches_nimble_uv_*`,
@@ -2657,25 +2658,27 @@ def entry_rank(rank: int, world: int, device, argv: list) -> dict:
 
 
 def phase_trainer_two_ranks() -> dict:
-    """Phase 28: configs/smoke_render.json (global batch 16, 256 samples a
-    split here, the encoder in fp32) through the entry at 2 ranks sharing
-    the card under gloo: 1 epoch and its eval, rank 0 alone writing; the
-    same checkpoint evaluated at 1 rank (metrics within 1e-5), and at 2
-    ranks through torchrun, the entry's launcher (`python -m
-    torch.distributed.run --standalone --nproc_per_node=2 -m
-    hifihr_tpu_torch.train ... --dist_backend gloo`); then a 1-rank resume
-    of the 2-rank checkpoint for a second epoch. The encoder runs in fp32
-    (TF32 off) here: in bf16, cuDNN's convs round a row differently in a
-    call of 8 rows (a rank's) than in one of 16, which moved the texture
-    metrics by up to 1.2e-4 and the median PA-EPE by 2.2e-4 (measured on an
-    H100), and would hide a wrong combination of the ranks' outputs."""
+    """Phase 28: configs/smoke_render.json as it ships (global batch 16,
+    the encoder in bf16; 256 samples a split here) through the entry at 2
+    ranks sharing the card under gloo: 1 epoch and its eval, rank 0 alone
+    writing; the same checkpoint evaluated at 1 rank (metrics within 1e-5,
+    and whether they are equal to the bit), and at 2 ranks through
+    torchrun, the entry's launcher (`python -m torch.distributed.run
+    --standalone --nproc_per_node=2 -m hifihr_tpu_torch.train ...
+    --dist_backend gloo`); then a 1-rank resume of the 2-rank checkpoint
+    for a second epoch. Each rank evaluates whole batches of 16
+    (training/loop.py), the shapes of the 1-rank eval: split by row, cuDNN
+    rounded a row differently in a call of 8 rows than in one of 16, and
+    LPIPS (whose feature normalisation magnifies last-bit differences)
+    moved by 5.3e-6 and 1.2e-5 relative in two runs on an H100, with the
+    encoder in fp32."""
     import tempfile
 
     from hifihr_tpu_torch import train as entry
     from hifihr_tpu_torch.parallel.launch import spawn_ranks
 
     t0 = time.perf_counter()
-    over = dict(total_epochs=1, controlled_size=256, compute_dtype="float32")
+    over = dict(total_epochs=1, controlled_size=256)
     out = {}
     with tempfile.TemporaryDirectory(prefix="hifihr_dp_trainer_") as tmp:
         two = _smoke_render_copy(tmp, "two", **over)
@@ -2706,6 +2709,7 @@ def phase_trainer_two_ranks() -> dict:
         metrics = sorted(k for k, v in single.items() if isinstance(v, float))
         diff = {k: abs(evals[0][k] - single[k]) / max(abs(single[k]), 1e-12) for k in metrics}
         out["eval_two_ranks"], out["eval_one_rank"], out["eval_rel_diff"] = evals[0], single, diff
+        out["eval_bit_equal"] = all(evals[0][k] == single[k] for k in metrics)
         check({"pa_mpjpe_cm", "tex_psnr"} <= set(metrics) and max(diff.values()) <= 1e-5,
               f"the 2-rank eval equals the 1-rank eval of its checkpoint within 1e-5: {diff}")
         viarun = _smoke_render_copy(tmp, "torchrun", pretrain_model=model_dir, **over)
@@ -2719,6 +2723,7 @@ def phase_trainer_two_ranks() -> dict:
         tr = [x["eval"] for x in _read_log(os.path.join(tmp, "torchrun")) if "eval" in x]
         tdiff = {k: abs(tr[0][k] - single[k]) / max(abs(single[k]), 1e-12) for k in metrics}
         check(len(tr) == 1 and max(tdiff.values()) <= 1e-5, f"torchrun's 2-rank eval equals the 1-rank eval: {tdiff}")
+        out["torchrun_eval_bit_equal"] = all(tr[0][k] == single[k] for k in metrics)
         resume = _smoke_render_copy(tmp, "resume", pretrain_model=model_dir, **dict(over, total_epochs=2))
         t1 = time.perf_counter()
         entry.main(["--config_json", resume])

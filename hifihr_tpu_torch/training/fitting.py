@@ -60,15 +60,13 @@ def fitting_loss(mano: ManoLayer, p: dict, Ks: torch.Tensor, target_2d: torch.Te
     return 1e-3 * reproj + 0.1 * bone + 0.1 * pose_prior + 1e-3 * shape_prior + 1e-2 * scale_prior
 
 
-def make_fitting_fn(mano: ManoLayer, n_steps: int = N_STEPS, device=None, loss_scale: float = 1.0):
+def make_fitting_fn(mano: ManoLayer, n_steps: int = N_STEPS, device=None):
     """Returns fit(pose, betas, trans, scale, Ks, target_2d, target_conf,
     root_xyz) -> {'pose', 'betas', 'trans', 'scale'}, the refined
     parameters, on `device` (CUDA unless the caller passes 'cpu'), where
     `mano` is moved and the inputs must lie. Gradients are enabled inside
     the fit, so it runs under torch.no_grad() too; inputs made under
-    inference_mode are copied out of it. The objective, a mean over the
-    batch, is multiplied by `loss_scale`: a rank that fits b of a batch's
-    B rows passes b / B, so each row's gradient is the whole batch's."""
+    inference_mode are copied out of it."""
     dev = resolve_device(device)
     mano = mano.to(dev)
 
@@ -81,8 +79,7 @@ def make_fitting_fn(mano: ManoLayer, n_steps: int = N_STEPS, device=None, loss_s
             mu = [torch.zeros_like(v) for v in params]
             nu = [torch.zeros_like(v) for v in params]
             for count in range(n_steps):
-                loss = fitting_loss(mano, p, Ks, target_2d, target_conf, root_xyz)
-                grads = torch.autograd.grad(loss * loss_scale, params)
+                grads = torch.autograd.grad(fitting_loss(mano, p, Ks, target_2d, target_conf, root_xyz), params)
                 lr, t = learning_rate(count), count + 1
                 with torch.no_grad():
                     # optax.adam: mu = (1 - b1) g + b1 mu, nu = (1 - b2) g^2 + b2 nu,

@@ -21,12 +21,15 @@ Over several ranks (parallel/mesh.py; `python -m hifihr_tpu_torch.train`
 under torchrun makes the process group) the Trainer trains on the global
 batch `config.train_batch`: every rank iterates the same seeded loader and
 stages only its rows to its device, and the train step reduces the loss
-terms, the skip guard and the gradient over the ranks. Eval pads each host
-batch to val_batch and to a multiple of the world size, as the JAX package
-pads for its devices; each rank evaluates (and fits) its rows, and the
-outputs are summed over the ranks from zero-filled buffers of the whole
-batch, so every rank computes the metrics of a one-rank eval of the same
-weights. Rank 0 alone writes train_log.jsonl, TensorBoard, the demo dumps,
+terms, the skip guard and the gradient over the ranks. Eval splits by
+batch, not by row: rank r evaluates (and fits) the whole eval batches i
+with i % world == r, at the shapes a one-rank eval runs them at, since
+cuDNN and cuBLAS round a row differently in calls of different batch
+sizes; the results are summed over the ranks from one zero-filled buffer
+of every batch, so every rank computes the metrics of a one-rank eval of
+the same weights: to the bit on the CPU; on the card up to the last bits
+that the renderer's atomic index_add_ varies between any two runs. Rank 0
+alone writes train_log.jsonl, TensorBoard, the demo dumps,
 the 2D-error reports and the submissions.
 """
 
@@ -34,6 +37,7 @@ from __future__ import annotations
 
 import json
 import logging
+import math
 import os
 import queue
 import threading
@@ -54,18 +58,16 @@ from hifihr_tpu_torch.training.train_state import create_train_state
 from hifihr_tpu_torch.utils.meters import AverageMeter
 
 
-def _pad_batch(batch: dict, pad_to: int | None, multiple: int = 1) -> tuple[dict, int]:
-    """The batch's arrays padded to `pad_to` rows, and then to a multiple of
-    `multiple` (the world size), by repeating the last row, and the number
-    of real rows: the JAX package pads a ragged last eval batch so for its
-    devices, and trims the predictions back; its texture metrics average
+def _pad_batch(batch: dict, pad_to: int | None) -> tuple[dict, int]:
+    """The batch's arrays padded to `pad_to` rows by repeating the last row,
+    and the number of real rows: the JAX package pads a ragged last eval
+    batch so, and trims the predictions back; its texture metrics average
     over the padded batch, and so do these."""
     arrs = {k: np.asarray(v) for k, v in batch.items() if not isinstance(v, str)}
     n = arrs["imgs"].shape[0] if "imgs" in arrs else next(
         v.shape[0] for v in arrs.values() if v.ndim
     )
-    target = max(pad_to or 0, n)
-    pad = target + (-target) % multiple - n
+    pad = max(pad_to or 0, n) - n
     if pad:
         arrs = {
             k: (np.concatenate([v, np.repeat(v[-1:], pad, axis=0)])
@@ -237,20 +239,32 @@ class Trainer:
         self._log(rec)
         return rec
 
-    def _gather(self, out: dict, n: int) -> dict:
-        """The outputs of the whole eval batch of n rows from each rank's
-        outputs of its rows: the rows placed in a zero-filled buffer of all
-        n, summed over the ranks in one all-reduce."""
-        if not self.mesh.distributed:
-            return out
-        keys = list(out)
-        flat = [out[k].reshape(out[k].shape[0], -1).float() for k in keys]
-        widths = [f.shape[1] for f in flat]
-        buf = torch.zeros((n, sum(widths)), device=self.device)
-        buf[self.mesh.rows(n)] = torch.cat(flat, 1)
+    def _combine(self, results: list, n_valids: list) -> list:
+        """Every eval batch's results on every rank, from this rank's
+        results of the batches it evaluated (None for the others): all
+        batches' tensors laid out in one zero-filled fp32 buffer, each
+        filled by its batch's rank, and summed over the ranks in one
+        all-reduce, which adds only zeros to every value. Rank 0 evaluated
+        batch 0 and broadcasts the layout: each key's shape (past the rows
+        for per-row results, whole for the per-batch tex_ scalars) and
+        dtype."""
+        if not self.mesh.distributed or not results:
+            return results
+        layout = [None]
+        if self.lead:
+            layout[0] = [(k, k.startswith("tex_"), tuple(v.shape[0 if k.startswith("tex_") else 1:]), v.dtype)
+                         for k, v in results[0].items()]
+        dist.broadcast_object_list(layout, src=0, group=self.mesh.group)
+        shapes = [[shape if per_batch else (n, *shape) for _, per_batch, shape, _ in layout[0]] for n in n_valids]
+        buf = torch.zeros(sum(math.prod(s) for row in shapes for s in row), device=self.device)
+        parts = iter(buf.split([math.prod(s) for row in shapes for s in row]))
+        views = [{k: next(parts).view(s) for (k, *_), s in zip(layout[0], row)} for row in shapes]
+        for res, view in zip(results, views):
+            if res is not None:
+                for k, v in view.items():
+                    v.copy_(res[k])
         dist.all_reduce(buf, group=self.mesh.group)
-        return {k: part.reshape(n, *out[k].shape[1:]).to(out[k].dtype)
-                for k, part in zip(keys, buf.split(widths, 1))}
+        return [{k: v.to(dtype) for (k, _, _, dtype), v in zip(layout[0], view.values())} for view in views]
 
     def _refine(self, out: dict, batch: dict) -> tuple:
         """Test-time MANO fitting (training/fitting.py, the reference's
@@ -263,9 +277,7 @@ class Trainer:
 
         if self._fit is None:
             mano = ManoLayer(ncomps=self.config.ncomps[1] - 3).to(self.device)
-            # a rank fits its 1/world of the rows: its loss weighs them as
-            # the whole batch's mean would
-            self._fit = mano, make_fitting_fn(mano, device=self.device, loss_scale=1.0 / self.mesh.world)
+            self._fit = mano, make_fitting_fn(mano, device=self.device)
         mano, fit = self._fit
         target = out.get("hm_j2d", batch.get("j2d_gt", out.get("j2d")))
         conf = torch.ones((*target.shape[:2], 1), dtype=target.dtype, device=target.device)
@@ -286,14 +298,16 @@ class Trainer:
 
         Host batches are padded to val_batch and staged to the device on a
         thread, up to 3 ahead, while the card runs the previous batch; the
-        results stay on the device until one readback at the end."""
+        results stay on the device until one readback at the end. Over
+        several ranks, rank r evaluates (and fits) the whole batches i with
+        i % world == r, so each batch runs at the shapes of a one-rank eval,
+        and _combine gives every rank every batch's results."""
         if self.val_loader is None:
             return {}
-        xyz_pred, verts_pred, n_valids = [], [], []
-        xyz_refined: list = []
         refine = self.config.test_refinement and self.config.hand_model == "mano"
-        tex_metrics: list[dict] = []
-        err_2d: dict[str, list] = {"proj": [], "pred": [], "detect": []}
+        world, rank = self.mesh.world, self.mesh.rank
+        results: list = []  # per batch: its results, or None for another rank's batch
+        n_valids: list = []
         dat_name = "FreiHand"
 
         q: queue.Queue = queue.Queue(maxsize=3)
@@ -301,9 +315,10 @@ class Trainer:
 
         def produce():
             try:
-                for batch in self.val_loader:
-                    arrs, n = _pad_batch(batch, self.config.val_batch, self.mesh.world)
-                    q.put((batch.get("dataset", "FreiHand"), n, stage(arrs, self.device, stream)))
+                for i, batch in enumerate(self.val_loader):
+                    arrs, n = _pad_batch(batch, self.config.val_batch)
+                    staged = stage(arrs, self.device, stream) if i % world == rank else None
+                    q.put((batch.get("dataset", "FreiHand"), n, staged))
                 q.put(None)
             except Exception as exc:  # noqa: BLE001 - handed to the consumer, which raises it
                 q.put(exc)
@@ -319,43 +334,41 @@ class Trainer:
                 raise item
             i += 1
             dat_name, n_valid, staged = item
-            dev_batch = claim(staged)
-            n_pad = dev_batch["imgs"].shape[0]
-            rows = self.mesh.rows(n_pad)
-            mine = {k: v[rows] for k, v in dev_batch.items()}
-            out = self._step_for(dat_name, train=False)(mine)
             n_valids.append(n_valid)
-            if refine:  # stays on the device until the readback at the end
-                refined = self._gather({"joints": self._refine(out, mine)[0]}, n_pad)["joints"]
-                xyz_refined.append(refined[:n_valid])
-            out = self._gather(out, n_pad)
+            if staged is None:
+                results.append(None)
+                continue
+            dev_batch = claim(staged)
+            out = self._step_for(dat_name, train=False)(dev_batch)
             if i == 0 and self.lead:  # demo dump (reference displadic every demo_freq)
                 self._demo_dump(os.path.join(self.out_dir, "pic", f"eval_{epoch}.png"),
                                 _host(dev_batch, n_valid), _host(out, n_valid), epoch)
-            xyz_pred.append(out["joints"][:n_valid])
-            verts_pred.append(out["mano_verts"][:n_valid])
+            res = {"joints": out["joints"][:n_valid], "verts": out["mano_verts"][:n_valid]}
+            if refine:
+                res["refined"] = self._refine(out, dev_batch)[0][:n_valid]
             # 2D per-joint Euclidean errors (reference save_2d,
             # traineval_util.py:428-442): proj = reprojected model joints,
             # pred = heatmap-branch joints, detect = openpose labels
             if self.config.save_2d and "j2d_gt" in dev_batch:
                 gt = dev_batch["j2d_gt"]
-                if "j2d" in out:
-                    err_2d["proj"].append(torch.linalg.norm(gt - out["j2d"], dim=-1)[:n_valid])
-                if "hm_j2d" in out:
-                    err_2d["pred"].append(torch.linalg.norm(gt - out["hm_j2d"], dim=-1)[:n_valid])
-                if "open_2dj" in dev_batch:
-                    err_2d["detect"].append(torch.linalg.norm(gt - dev_batch["open_2dj"], dim=-1)[:n_valid])
+                for key, j2d in (("proj", out.get("j2d")), ("pred", out.get("hm_j2d")),
+                                 ("detect", dev_batch.get("open_2dj"))):
+                    if j2d is not None:
+                        res[f"err_{key}"] = torch.linalg.norm(gt - j2d, dim=-1)[:n_valid]
             if "re_img" in out and "segms_gt" in dev_batch:
-                tex_metrics.append(M.texture_metrics(
+                res.update({f"tex_{k}": v for k, v in M.texture_metrics(
                     out["re_img"], out["re_sil"], dev_batch["imgs"], gt_mask=dev_batch["segms_gt"],
                     lpips=self._lpips_for(out["re_img"]),
-                ))  # device scalars; read back once at the end
+                ).items()})  # device scalars; read back once at the end
+            results.append(res)
         producer.join()
-        xyz_dev = torch.cat(xyz_pred)
-        verts_dev = torch.cat(verts_pred)
+        results = self._combine(results, n_valids)
+        xyz_dev = torch.cat([r["joints"] for r in results])
+        verts_dev = torch.cat([r["verts"] for r in results])
         xyz_np, verts_np = xyz_dev.cpu().numpy(), verts_dev.cpu().numpy()
         result = {"epoch": epoch,
                   "split": "val" if self.config.is_val else "evaluation"}
+        err_2d = {k: [r[f"err_{k}"] for r in results if f"err_{k}" in r] for k in ("proj", "pred", "detect")}
         if self.config.save_2d and any(err_2d.values()) and self.lead:
             from hifihr_tpu_torch.utils.visualize import save_2d_error_report
 
@@ -378,13 +391,12 @@ class Trainer:
             result["pa_epe_mean_cm"] = epe_mean * 100
             result["pa_epe_median_cm"] = epe_med * 100
             result["pck_auc"] = auc
-            if xyz_refined:
-                refined = torch.cat(xyz_refined)[:n]
+            if refine:
+                refined = torch.cat([r["refined"] for r in results])[:n]
                 result["pa_mpjpe_refined_cm"] = float(M.pa_mpjpe(refined, gt_xyz)) * 100
-        if tex_metrics:
-            for k in tex_metrics[0]:
-                per_batch = torch.stack([m[k] for m in tex_metrics]).tolist()
-                result[f"tex_{k}"] = float(np.mean(per_batch))
+        for k in [k for k in results[0] if k.startswith("tex_")]:
+            per_batch = torch.stack([r[k] for r in results]).tolist()
+            result[k] = float(np.mean(per_batch))
         # HO3D always dumps the submission file; config.save_3d extends the
         # dump to every dataset (reference train_hrnet.py:119,200,280-283)
         if (dat_name == "HO3D" or self.config.save_3d) and self.lead:

@@ -45,7 +45,10 @@ Tolerances:
   the chaotic first update, and the own choice is held at >= 95% (measured
   98.1%);
 - the Trainer's eval at 2 ranks against a one-rank eval of the same
-  checkpoint: 1e-5 relative.
+  checkpoint: 1e-5 relative (the one-rank eval runs in this process, with
+  its own intra-op thread count); the same weights evaluated at 1 and 2
+  spawned ranks, one thread each: equal to the bit, since each rank
+  evaluates whole batches at a one-rank eval's shapes.
 """
 
 import json
@@ -283,3 +286,36 @@ def test_trainer_at_two_ranks(tmp_path):
     assert {"pa_mpjpe_cm", "pa_mpvpe_cm", "pck_auc"} <= set(metrics)
     for k in metrics:
         np.testing.assert_allclose(two[k], one[k], rtol=1e-5, err_msg=k)
+
+
+def test_eval_at_n_ranks_bit_equal(tmp_path):
+    """configs/smoke_synthetic.json with the render, test-time fitting and
+    5 eval samples (batches of 2, 2 and a ragged 1; rank 0 takes the
+    first and the last) evaluated from the same seeded weights at 2 ranks
+    and at 1 (in this process, on one intra-op thread as each rank):
+    PA metrics, the refined PA-MPJPE and the texture metrics (LPIPS at
+    64 px too) equal to the bit, and rank 0 alone writes the eval record."""
+    from hifihr_tpu_torch.train import main
+
+    with open(os.path.join(ROOT, "configs", "smoke_synthetic.json")) as f:
+        raw = json.load(f)
+    paths = {}
+    for world in (1, 2):
+        raw.update(base_out_path=str(tmp_path / f"w{world}"), num_workers=0, render=True, controlled_size=5,
+                   train_batch=2, val_batch=2, test_refinement=True)
+        paths[world] = str(tmp_path / f"w{world}.json")
+        with open(paths[world], "w") as f:
+            json.dump(raw, f)
+    argv = ["--device", "cpu", "--mode", "evaluation", "--config_json"]
+    ranks = _spawn(entry_rank, 2, (argv + [paths[2]],), tmp_path)
+    assert ranks[1] == ranks[0]  # every rank computes the metrics
+    assert [r["eval"] for r in _log_records(str(tmp_path / "w2")) if "eval" in r] == [ranks[0]]  # one writer
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        one = main(argv + [paths[1]])
+    finally:
+        torch.set_num_threads(threads)
+    keys = {k for k, v in one.items() if isinstance(v, float)}
+    assert {"pa_mpjpe_cm", "pa_mpjpe_refined_cm", "tex_psnr", "tex_lpips_randinit"} <= keys
+    assert ranks[0] == one
