@@ -214,8 +214,8 @@ over a few eval steps and a few train steps of every cell. Phases:
      stand-in: pa_mpjpe_cm and pa_mpjpe_refined_cm finite; one batch's fit
      (151 Adam steps, batch 16) on the card against the CPU (the refined
      joints within 1e-4 m), its ms per fit, device busy ms, launches per
-     fit step and host syncs per fit (none); its eval reads 256 samples
-     (16 batches), for the script's time limit
+     fit step and host syncs per fit (none); its eval reads 128 samples
+     (8 batches), for the script's time limit
  24. dp train (64): the flagship train step over two ranks that share the
      card under gloo (spawned; 32 rows each): K1, K2 and K3 once a step on
      each rank and held against their plain versions on its step-1 inputs,
@@ -245,11 +245,43 @@ over a few eval steps and a few train steps of every cell. Phases:
      rank 0 alone writing; its checkpoint evaluated at one rank and through
      torchrun at two (metrics within 1e-5, and whether equal to the bit),
      and resumed at one rank
+ 29. hrnet eval (64): the flagship with pretrain="hr18sv2" (HRNet-W18-small-
+     v2, 1024 features; no light estimator, as HRNet has no low-level tap):
+     the checks of phase 6, and the encoder's device ms and share of the
+     step's busy time
+ 30. hrnet train (64): the checks of phase 7 (K1, K2 and K3 once a step,
+     K1 and K3 held on the step's own inputs); the card against the CPU at
+     the slice size with HRNet, HRNet's encoder gradients within
+     HRNET_GRAD_TOL (its train-mode BatchNorms over few values per channel
+     are ill conditioned: tests/test_torch_hrnet_slice.py), the encoder's
+     share of the step
+ 31. four_channel (64): the flagship's eval and train steps with
+     four_channel=True, the images carrying the openpose heatmap channel
+     (data/freihand.py::keypoint_heatmap_channel of seeded open_2dj), under
+     the loss set JAX's step runs with four channels (FOUR_LOSSES: no
+     photometric target, as JAX's photometric terms raise on four
+     channels); no loss reads the render, so the train step launches K1 and
+     K2 and no K3; the checks of phases 6-7 and the card against the CPU at
+     32 px
+ 32. openpose detect (16, 368^2): the CPM hand detector on its 4 scales,
+     seeded init; the card against the CPU at 64^2 (peaks equal,
+     confidences within 1e-4); images/s, device busy ms and launches per
+     batch; no TPU kernel on its path
+ 33. demo: hifihr_tpu_torch.demo on a PNG the phase writes, restoring a
+     checkpoint its CheckpointManager wrote (demo.main whole where
+     matplotlib imports, else the demo's own steps and no panel): the OBJ's
+     778 vertices and 1538 faces, 8 turntable frames each with a
+     silhouette, every frame's K1 route at 2 x 2 subsamples
+     (msaa_fine_kernel<2>) exactly equal to msaa_select_plain(...,
+     samples=2) and timed against its bound, every K2 launch bit-equal
 
 The `{"kernels": [...]}` line also holds every kernel's launches per step
 of the new cells (`launches_mano_new_*`, `launches_nimble_uv_*`,
 `launches_nimble_ssaa_*`, `launches_trainer_mano_new_*`,
-`launches_rgb2hm_*`, `launches_dp_train_step_per_rank`), K4's readings on
+`launches_rgb2hm_*`, `launches_dp_train_step_per_rank`,
+`launches_hrnet_*`, `launches_four_channel_*`, `launches_openpose`,
+`launches_demo`), K1's 2 x 2 reading on the turntable (`turntable_2x2`), K1's
+and K3's on the HRNet and four-channel steps' inputs, K4's readings on
 NIMBLE's SSAA hands (`nimble_ssaa_hand`), K1's and K3's on the UV steps'
 inputs, and K2's and K3's on the texture quads (`texture_quad_nimble_uv`,
 `texture_quad_nimble_ssaa`).
@@ -285,7 +317,9 @@ import torch
 B, S = 64, 224
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM memory rate
 FP32_OPS_PER_S = 67e12  # H100 SXM fp32 rate outside the tensor cores
-K1_OPS_PER_PAIR = 60  # 9 subsamples x (3 edge steps + 2 min + 1 compare) + depth plane
+# per subsample 3 edge steps + 2 min + 1 compare, + the depth plane: 60 at 3 x 3
+def k1_ops_per_pair(samples: int = 3) -> int:
+    return 6 * samples * samples + 6
 # 15 for the edges, 2 area adds, |area| test, 3 divisions, 3 sign tests,
 # 5 for the depth, 1 depth test (csrc/raster_face.cu's inner loop)
 K4_OPS_PER_PAIR = 30
@@ -537,25 +571,27 @@ def launches_per_route(fn, wrapper, what: str) -> int:
 
 
 def k1_route(coef: torch.Tensor, bbox: torch.Tensor, what: str, size: int = S,
-             plain_images: int | None = None) -> dict:
+             plain_images: int | None = None, samples: int = 3) -> dict:
     """K1's route against its plain version on the prep's records (face_id,
     coverage and zbuf exactly equal; on the first `plain_images` images when
     given, since each image's outputs depend on its own records only), then
     its time on all of them, the launches of one route as the C route counts
     them (a zero fill, the bin kernel and the fine kernel: 3), each launch's
-    device time (torch.profiler), the pairs it walks and its bound."""
+    device time (torch.profiler), the pairs it walks and its bound; at
+    `samples` x `samples` subsamples (3 on the model's paths, 2 on the
+    turntable's)."""
     from hifihr_tpu_torch.render import raster_msaa as k1
 
     n = plain_images or coef.shape[0]
-    fid, cov, zb = (x[:n] for x in k1.msaa_select_cuda(coef, bbox, size))
-    fid_p, cov_p, zb_p = k1.msaa_select_plain(coef[:n], size)
+    fid, cov, zb = (x[:n] for x in k1.msaa_select_cuda(coef, bbox, size, samples))
+    fid_p, cov_p, zb_p = k1.msaa_select_plain(coef[:n], size, samples)
     torch.cuda.synchronize()
     for name, a, b in (("face_id", fid, fid_p), ("coverage", cov, cov_p), ("zbuf", zb, zb_p)):
         check(torch.equal(a, b), f"K1 {name} equals the plain version on {what} "
                                  f"({(a != b).sum().item()} mismatches)")
     covered = (fid_p >= 0).float().mean().item()
     check(covered > 0.01, f"K1 scene covers pixels on {what}")
-    route = lambda: k1.msaa_select_cuda(coef, bbox, size)  # noqa: E731
+    route = lambda: k1.msaa_select_cuda(coef, bbox, size, samples)  # noqa: E731
     per_route = launches_per_route(route, k1.rasterize_msaa, "K1")
     check(per_route == len(ROUTE_PARTS), f"K1's route is a zero fill, a bin and a fine launch on {what}: "
                                       f"{per_route} launches")
@@ -563,8 +599,9 @@ def k1_route(coef: torch.Tensor, bbox: torch.Tensor, what: str, size: int = S,
     parts = route_parts_ms(route, f"K1 on {what}")
     pairs = box_pairs(bbox, size)
     nbytes = (coef.numel() + bbox.numel()) * 4 + 3 * fid.numel() * 4
-    bound_ms, bound_by = bound(nbytes, pairs * K1_OPS_PER_PAIR)
-    out = {"hand": what, "shape": list(coef.shape), "plain_images": n, "covered": covered, "box_pairs": pairs,
+    bound_ms, bound_by = bound(nbytes, pairs * k1_ops_per_pair(samples))
+    out = {"hand": what, "shape": list(coef.shape), "samples": samples, "plain_images": n, "covered": covered,
+           "box_pairs": pairs,
            "walked_pairs": walked_pairs(bbox, size), "tile_pairs": tile_pairs(bbox, size),
            "route_ms": ms, "parts_ms": parts, "launches_per_route": per_route,
            "bound_ms": bound_ms, "bound_by": bound_by}
@@ -611,7 +648,7 @@ def k3_launch(g: torch.Tensor, idx: torch.Tensor, n_rows: int, what: str) -> dic
 
 @contextlib.contextmanager
 def captured_kernel_inputs():
-    """Record the inputs of every K1 route (coef, bbox, size), every K2
+    """Record the inputs of every K1 route (coef, bbox, size, samples), every K2
     launch (table, idx), every K3 launch (values, idx, n_rows) and every K4
     route (tri, size) the port makes inside the block, by wrapping the
     module functions its wrappers call; the kernels still run, and their
@@ -623,7 +660,7 @@ def captured_kernel_inputs():
                                   raster.select_face_id_cuda)
 
     def k1(coef, bbox, image_size, samples=3):
-        got["K1"].append((coef.clone(), bbox.clone(), image_size))
+        got["K1"].append((coef.clone(), bbox.clone(), image_size, samples))
         return k1_fn(coef, bbox, image_size, samples)
 
     def k2(table, idx):
@@ -1125,6 +1162,8 @@ def phase_eval_step(batch: dict, profile: bool, cfg, path: str, check_cfg, check
     numbers["device_busy_ms"], numbers["launches_per_step"] = device_profile(lambda: step(batch))
     if cfg.rgb2hm:
         numbers["hourglass"] = hourglass_share(model, batch, numbers["device_busy_ms"], False, f"the {path} eval step")
+    if cfg.pretrain == "hr18sv2":
+        numbers["encoder"] = encoder_share(model, batch, numbers["device_busy_ms"], False, f"the {path} eval step")
     print(f"{path} eval step: " + json.dumps(numbers))
     if profile:
         busy = profile_steps(step, batch)
@@ -1284,12 +1323,30 @@ def zero_in_exact_arithmetic(name: str) -> bool:
     return bool(m) and (m.group(1) is None or int(m.group(1)) >= 1)
 
 
+def grad_tol(cfg, name: str) -> float:
+    """The card-against-CPU bound of one gradient's relative L2 error: 1e-3,
+    or where the CPU tests found the step ill conditioned, what they hold
+    the port to against JAX: the hourglass's, HRNet's encoder's (its
+    train-mode BatchNorms over few values per channel;
+    tests/test_torch_hrnet_slice.py: up to 30x JAX's own one-ulp move, 5e-2
+    at most) and, with four channels, ResNet's below layer4_0.bn1
+    (tests/test_torch_four_channel.py)."""
+    if name.startswith("rgb2hm."):
+        return HOURGLASS_GRAD_TOL
+    if cfg.pretrain == "hr18sv2" and name.startswith("encoder."):
+        return HRNET_GRAD_TOL
+    if cfg.four_channel and name.startswith(FOUR_CHANNEL_STEM_SIDE):
+        return FOUR_CHANNEL_STEM_TOL
+    return 1e-3
+
+
 def phase_train_step(batch: dict, profile: bool, cfg, label: str, fired: tuple, small_cfg,
-                     small_batch: dict) -> tuple:
+                     small_batch: dict, path: tuple | None = None) -> tuple:
     """The train step of `cfg` on `batch`: its checks, its numbers, and K1,
     K2, K3 and K4 on its own inputs at step 1 and after the timed steps;
     the same step in fp32 (`small_cfg`) on the card against the CPU on
-    `small_batch`. `fired` are the loss terms it must compute."""
+    `small_batch`. `fired` are the loss terms it must compute; `path` the
+    kernels it must launch (PATH_KERNELS[cfg.aa_mode] by default)."""
     from hifihr_tpu_torch.losses.stack import LossComputer
     from hifihr_tpu_torch.models.hifihr import build_model
     from hifihr_tpu_torch.training.steps import make_sched, make_train_step
@@ -1323,7 +1380,7 @@ def phase_train_step(batch: dict, profile: bool, cfg, label: str, fired: tuple, 
     check_route_launches(launches, f"the {label} train step")
     totals.append(d["total"])
     print(f"{label} train step launches: {launches}")
-    path = PATH_KERNELS[cfg.aa_mode]
+    path = path or PATH_KERNELS[cfg.aa_mode]
     check(all(launches[k] > 0 for k in path) and sum(launches[k] for k in path) == sum(launches.values()),
           f"{', '.join(path)} and no other kernel ran on the {label} train path: {launches}")
     # K1, K3 and K4 on the step's own inputs, and K2 bit-equal there: the
@@ -1335,8 +1392,8 @@ def phase_train_step(batch: dict, profile: bool, cfg, label: str, fired: tuple, 
         check(all(len(got[k]) == launches[name] for k, name in (
             ("K1", "K1 msaa_raster"), ("K2", "K2 gather_rows"), ("K3", "K3 scatter_rows"), ("K4", "K4 face_raster"))),
             f"one capture per K1 route, K2 and K3 launch and K4 route of the {label} train step")
-        hand["K1"].extend(k1_route(coef, bbox, f"the {label} train step's hand at {when}", size, plain_images)
-                          for coef, bbox, size in got["K1"])
+        hand["K1"].extend(k1_route(coef, bbox, f"the {label} train step's hand at {when}", size, plain_images,
+                                   samples) for coef, bbox, size, samples in got["K1"])
         hand["K2"] += check_k2_captures(got["K2"], f"the {label} train step at {when}")
         hand["K3"].extend(k3_launch(g, idx, n, f"launch {i} of the {label} train step at {when}")
                           for i, (g, idx, n) in enumerate(got["K3"]))
@@ -1411,10 +1468,9 @@ def phase_train_step(batch: dict, profile: bool, cfg, label: str, fired: tuple, 
           f"{small_batch['imgs'].shape[0]} images: worst loss term rel err "
           f"{max(term_err.items(), key=lambda kv: kv[1])}, worst gradient rel L2 {worst}")
     check(max(term_err.values()) <= 1e-4, "loss terms within 1e-4 of the CPU plain path")
-    check(max(v for k, v in grad_err.items() if not k.startswith("rgb2hm.")) <= 1e-3,
-          "gradients within 1e-3 relative L2 of the CPU plain path")
-    check(max((v for k, v in grad_err.items() if k.startswith("rgb2hm.")), default=0.0) <= HOURGLASS_GRAD_TOL,
-          f"the hourglass's gradients within {HOURGLASS_GRAD_TOL} relative L2 of the CPU plain path")
+    over = {k: v for k, v in grad_err.items() if v > grad_tol(small_cfg, k)}
+    check(not over, f"gradients within 1e-3 relative L2 of the CPU plain path (grad_tol where the CPU tests "
+                    f"found the step ill conditioned): {over}")
 
     torch.cuda.reset_peak_memory_stats()
     numbers = time_steps(lambda: step(state, batch, sched), images)
@@ -1422,6 +1478,8 @@ def phase_train_step(batch: dict, profile: bool, cfg, label: str, fired: tuple, 
     numbers["tf32"] = {"cudnn": torch.backends.cudnn.allow_tf32, "matmul": torch.backends.cuda.matmul.allow_tf32}
     if cfg.rgb2hm:
         numbers["hourglass"] = hourglass_share(model, batch, numbers["device_busy_ms"], True, f"the {label} train step")
+    if cfg.pretrain == "hr18sv2":
+        numbers["encoder"] = encoder_share(model, batch, numbers["device_busy_ms"], True, f"the {label} train step")
     print(f"{label} train step: " + json.dumps(numbers))
     if profile:
         busy = profile_steps(lambda b: step(state, b, sched), batch)
@@ -1456,8 +1514,8 @@ def device_profile(fn, reps: int = 2) -> tuple:
     return sum(e.self_device_time_total for e in rows) / reps / 1e3, sum(e.count for e in rows) / reps
 
 
-def encoder_share(model, batch: dict, busy_ms: float, train: bool, what: str) -> None:
-    """The EfficientNet encoder alone on the step's images (forward, and the
+def encoder_share(model, batch: dict, busy_ms: float, train: bool, what: str) -> dict:
+    """The encoder's backbone alone on the step's images (forward, and the
     backward of its outputs' mean when `train`), in the port's channels-last
     layout and in plain NCHW: device ms (torch.profiler) and CUDA-events ms,
     and the channels-last device ms as a share of the step's device busy
@@ -1474,15 +1532,17 @@ def encoder_share(model, batch: dict, busy_ms: float, train: bool, what: str) ->
         def run():
             with torch.set_grad_enabled(train), model._encoder_autocast(imgs.device):
                 x = normalize_imagenet(imgs).permute(0, 3, 1, 2).contiguous(memory_format=fmt)
-                low, feat = enc.backbone(x)
-            if train:
-                (low.float().mean() + feat.float().mean()).backward()
+                out = enc.backbone(x)
+            if train:  # HRNet's backbone returns its head's map alone
+                sum(t.float().mean() for t in (out if isinstance(out, tuple) else (out,))).backward()
 
         times[layout] = {"device_ms": device_profile(run)[0], "events_ms": time_ms(run, reps=5)}
         del enc
     share = times["channels_last"]["device_ms"] / busy_ms
-    print(f"effb3 encoder on {what}'s {imgs.shape[0]} images ({'forward + backward' if train else 'forward'}): "
+    print(f"{model.config.pretrain} encoder on {what}'s {imgs.shape[0]} images "
+          f"({'forward + backward' if train else 'forward'}): "
           f"{json.dumps(times)}; channels_last is {share:.3f} of the step's {busy_ms:.3f} ms of device time")
+    return dict(times, share=share)
 
 
 def vgg_share(loss_computer, batch: dict, busy_ms: float, what: str) -> None:
@@ -2253,7 +2313,7 @@ def texture_quad(cfg, batch: dict, what: str) -> dict:
 
 # phase 23: test-time MANO fitting in the Trainer's eval
 FIT_JOINTS_TOL = 1e-4  # m: the refined joints, card against CPU (tests/test_torch_fitting.py)
-FIT_EVAL_SAMPLES = 256  # 16 eval batches of 16, for the script's time limit
+FIT_EVAL_SAMPLES = 128  # 8 eval batches of 16, for the script's time limit
 
 
 def phase_fitting() -> dict:
@@ -2415,8 +2475,8 @@ def dp_flagship_rank(rank: int, world: int, device, fsdp: int) -> dict:
     with captured_kernel_inputs() as first:
         state, d = step(state, batch, sched)
     first_totals = [d["total"].item(), step(state, batch, sched)[1]["total"].item()]  # and allocator warm-up
-    held = {"K1": [k1_route(coef, bbox, f"the dp train step's hand, {what}", size)["route_ms"]
-                   for coef, bbox, size in first["K1"]],
+    held = {"K1": [k1_route(coef, bbox, f"the dp train step's hand, {what}", size, samples=samples)["route_ms"]
+                   for coef, bbox, size, samples in first["K1"]],
             "K2": check_k2_captures(first["K2"], f"the dp train step, {what}"),
             "K3": [k3_launch(g, idx, n, f"the dp train step, {what}")["ms"] for g, idx, n in first["K3"]]}
     first.clear()
@@ -2735,6 +2795,168 @@ def phase_trainer_two_ranks() -> dict:
     return out
 
 
+# phases 29-30: HRNet's steps. tests/test_torch_hrnet_slice.py holds the
+# port's encoder gradients against JAX's within 30x JAX's own one-ulp move
+# and 5e-2 at most; the card against the CPU is held to the same cap
+HRNET_GRAD_TOL = 5e-2
+# phase 31: the loss set JAX's step runs with four channels. Its
+# photometric terms compare the 3-channel render with the 4-channel images
+# and raise (tests/test_torch_four_channel.py), so the batch holds no
+# segms_gt or texture_con, and sil and iou, which read segms_gt, are out;
+# no loss reads the render, so the train step launches K1 and K2, no K3
+FOUR_LOSSES = tuple(k for k in LOSSES if k not in ("sil", "iou")) + ("open_2dj",)
+FOUR_PATH = ("K1 msaa_raster", "K2 gather_rows")
+# ResNet's tensors below layer4_0.bn1, whose train-mode BatchNorm backward
+# over 8 x 2 x 2 values per channel at 32 px adds a ~1.2e-3 relative
+# difference (tests/test_torch_four_channel.py)
+FOUR_CHANNEL_STEM_SIDE = ("encoder.backbone.conv1", "encoder.backbone.bn1", "encoder.backbone.layer1_",
+                          "encoder.backbone.layer2_", "encoder.backbone.layer3_",
+                          "encoder.backbone.layer4_0.conv1", "encoder.backbone.layer4_0.bn1.bias")
+FOUR_CHANNEL_STEM_TOL = 2e-3
+
+
+def four_channel_batch(batch: dict, seed: int = 5) -> dict:
+    """`batch` without its photometric targets, with seeded openpose
+    detections and their heatmap channel appended to the images, as the
+    port's FreiHAND loader appends it (data/freihand.py::
+    keypoint_heatmap_channel)."""
+    from hifihr_tpu_torch.data.freihand import keypoint_heatmap_channel
+
+    out = {k: v for k, v in with_openpose(batch, seed).items() if k not in ("segms_gt", "texture_con")}
+    size = out["imgs"].shape[1]
+    hm = np.stack([keypoint_heatmap_channel(j, size) for j in out["open_2dj"].cpu().numpy()])[..., None]
+    out["imgs"] = torch.cat([out["imgs"], torch.tensor(hm, device=out["imgs"].device)], dim=-1)
+    return out
+
+
+OPENPOSE_B, OPENPOSE_S = 16, 368  # the detector's batch and image size (openpose_hand.py's default)
+OPENPOSE_CHECK_S = 64  # its card-against-CPU check
+
+
+def phase_openpose() -> dict:
+    """Phase 32: the CPM hand detector (seeded init, no CPM weights in the
+    repo) on 16 images at 368^2 over its 4 scales, and the card against the
+    CPU at 64^2: peaks equal, confidences within 1e-4 of the largest. No
+    TPU kernel runs: every kernel's count stays 0."""
+    from hifihr_tpu_torch.networks.openpose_hand import HandDetector
+
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(7)
+    small = rng.rand(4, OPENPOSE_CHECK_S, OPENPOSE_CHECK_S, 3).astype(np.float32)
+    gpu = HandDetector(image_size=OPENPOSE_CHECK_S, device="cuda", seed=0)
+    cpu = HandDetector(image_size=OPENPOSE_CHECK_S, device="cpu", seed=0)
+    (gp, gc), (cp, cc) = gpu(small), cpu(small)
+    conf_err = float(np.abs(gc - cc).max() / np.abs(cc).max())
+    print(f"openpose detector card vs CPU ({small.shape[0]} images, {OPENPOSE_CHECK_S}^2): peaks equal "
+          f"{bool((gp == cp).all())}, confidence max rel err {conf_err}")
+    check(np.array_equal(gp, cp), "the detector's peaks on the card equal the CPU's")
+    check(conf_err <= 1e-4, "the detector's confidences within 1e-4 of the CPU's")
+
+    det = HandDetector(image_size=OPENPOSE_S, device="cuda", seed=0)
+    imgs = torch.tensor(rng.rand(OPENPOSE_B, OPENPOSE_S, OPENPOSE_S, 3).astype(np.float32), device="cuda")
+    det.infer(imgs)
+    torch.cuda.synchronize()
+    reset_launches()
+    peaks, conf = det.infer(imgs)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    check(not any(launches.values()), f"no TPU kernel on the detector's path: {launches}")
+    check(bool(torch.isfinite(conf).all()) and peaks.shape == (OPENPOSE_B, 21, 2)
+          and bool(((peaks >= 0) & (peaks < OPENPOSE_S)).all()), "peaks inside the image, finite confidences")
+    ms = time_ms(lambda: det.infer(imgs), reps=2)
+    busy, dev_launches = device_profile(lambda: det.infer(imgs))
+    numbers = {"batch": OPENPOSE_B, "image_size": OPENPOSE_S, "scales": list(det.scales), "ms": ms,
+               "images_per_s": OPENPOSE_B / ms * 1e3, "device_busy_ms": busy, "launches_per_batch": dev_launches,
+               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+    print("openpose detect: " + json.dumps(numbers))
+    print(f"phase openpose: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def phase_demo(tmp: str) -> tuple:
+    """Phase 33: hifihr_tpu_torch.demo on a PNG the phase writes (the
+    flagship batch's first image), restoring a checkpoint the phase's
+    CheckpointManager wrote (the flagship model at seed 1; the demo builds
+    seed 0, so the restore matters): demo.main whole where matplotlib
+    imports, else its own steps (the forward, save_obj, the turntable,
+    write_png) and no panel. Checks: the OBJ's 778 vertices and 1538 faces
+    equal to the restored model's mesh, 8 turntable frames each with a
+    silhouette; every frame's K1 route (2 x 2 subsamples) exactly equal to
+    msaa_select_plain(..., samples=2) and timed against its bound, every
+    K2 launch bit-equal. Returns (the launches of the whole demo, K1's
+    turntable reading)."""
+    from hifihr_tpu_torch import demo
+    from hifihr_tpu_torch.models.hifihr import build_model
+    from hifihr_tpu_torch.training.checkpoint import CheckpointManager
+    from hifihr_tpu_torch.training.train_state import create_train_state
+    from hifihr_tpu_torch.utils import visualize
+
+    t0 = time.perf_counter()
+    cfg = demo.load_config(None)
+    saved = build_model(cfg, device="cuda", seed=1)
+    CheckpointManager(os.path.join(tmp, "model"), cfg.save_mode).save(create_train_state(saved, cfg), 0)
+    image = os.path.join(tmp, "hand.png")
+    visualize.write_png(image, flagship_batch("cpu")["imgs"][0].numpy())
+    out_dir = os.path.join(tmp, "demo_out")
+    try:
+        import matplotlib  # noqa: F401
+
+        panel = True
+    except ImportError:
+        panel = False
+    reset_launches()
+    with captured_kernel_inputs() as got:
+        if panel:
+            res = demo.main(["--image", image, "--checkpoint", os.path.join(tmp, "model"), "--out", out_dir])
+            verts, frames = res["verts"], res["frames"]
+        else:  # the demo's own steps, the panel left out
+            model = build_model(cfg, device="cuda", seed=0)
+            CheckpointManager(os.path.join(tmp, "model"), cfg.save_mode).restore(create_train_state(model, cfg))
+            K, root = demo.demo_camera(cfg.image_size, "cuda")
+            imgs = torch.as_tensor(demo.load_input(image, cfg.image_size)[None], device="cuda")
+            os.makedirs(out_dir, exist_ok=True)
+            verts, faces = demo.write_mesh(out_dir, model, demo.forward(model, imgs, K, root), root)
+            frames = demo.write_turntable(out_dir, verts, faces, "cuda")
+        torch.cuda.synchronize()
+    launches = read_launches()
+    check_route_launches(launches, "the demo")
+    print(f"demo launches: {launches}; panel {'drawn' if panel else 'not drawn: matplotlib is not installed'}")
+    check(launches["K1 msaa_raster"] == 9 and launches["K2 gather_rows"] == 9 and launches["K3 scatter_rows"] == 0
+          and launches["K4 face_raster"] == 0, "K1 and K2 once for the forward and once per turntable frame")
+
+    K, root = demo.demo_camera(cfg.image_size, "cuda")
+    imgs = torch.as_tensor(demo.load_input(image, cfg.image_size)[None], device="cuda")
+    want = demo.forward(saved, imgs, K, root)
+    check(np.allclose(verts, (want["mano_verts"][0] + root[0]).cpu().numpy(), atol=1e-6),
+          "the demo's mesh is the restored model's")
+    with open(os.path.join(out_dir, "hand.obj")) as f:
+        lines = f.read().splitlines()
+    n_v, n_f = sum(x.startswith("v ") for x in lines), sum(x.startswith("f ") for x in lines)
+    check((n_v, n_f) == (778, 1538), f"hand.obj holds 778 vertices and 1538 faces ({n_v}, {n_f})")
+    covered = [float((f[..., 3] > 0).mean()) for f in frames]
+    check(frames.shape == (8, 224, 224, 4) and min(covered) > 0, f"8 turntable frames with a silhouette: {covered}")
+    check(os.path.getsize(os.path.join(out_dir, "turntable.png")) > 0, "turntable.png written")
+    check(not panel or os.path.getsize(os.path.join(out_dir, "panel.png")) > 0, "panel.png written")
+
+    samples = [k[3] for k in got["K1"]]
+    check(samples == [3] + [2] * 8, f"K1 at 3 x 3 in the forward, at 2 x 2 on each frame: {samples}")
+    frames_k1 = [k1_route(coef, bbox, f"turntable frame {i}", size, samples=n)
+                 for i, (coef, bbox, size, n) in enumerate(got["K1"][1:])]
+    k2_checked = check_k2_captures(got["K2"], "the demo")
+    reading = {"frames": len(frames_k1), "launches_per_frame": 1,
+               "ms": statistics.median(r["route_ms"] for r in frames_k1),
+               "bound_ms": statistics.median(r["bound_ms"] for r in frames_k1),
+               "covered": covered, "per_frame": frames_k1}
+    coef, bbox, size, n = got["K1"][1]
+    from hifihr_tpu_torch.render import raster_msaa as k1
+
+    reading["plain_ms"] = time_ms(lambda: k1.msaa_select_plain(coef, size, n), reps=1)
+    print(f"K1 at 2 x 2 on the turntable: median {reading['ms']:.4f} ms a frame (plain {reading['plain_ms']:.2f}), "
+          f"bound {reading['bound_ms']:.4f}; K2 {k2_checked} launches bit-equal")
+    print(f"phase demo: {time.perf_counter() - t0:.1f} s")
+    return launches, reading
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -2768,12 +2990,12 @@ def main() -> int:
     launches, hands = {}, {}
 
     def cell(key: str, label: str, cfg, eval_batch: dict, train_batch: dict, eval_check: tuple,
-             train_check: tuple, fired: tuple = FIRED) -> None:
+             train_check: tuple, fired: tuple = FIRED, train_path: tuple | None = None) -> None:
         """The eval and train steps of one cell; their launches under
         `{key}eval_step` and `{key}train_step`."""
         launches[f"{key}eval_step"] = phase_eval_step(eval_batch, args.profile, cfg, label, *eval_check)
         launches[f"{key}train_step"], hands[key] = phase_train_step(train_batch, args.profile, cfg, label, fired,
-                                                                    *train_check)
+                                                                    *train_check, path=train_path)
 
     def full_size_check(cfg) -> tuple:  # the eval step in fp32 on 2 images at 224^2
         return (dataclasses.replace(cfg, compute_dtype="float32"), {k: v[:2].cpu() for k, v in batch.items()},
@@ -2826,6 +3048,27 @@ def main() -> int:
     hm_batch = with_openpose(batch)
     cell("rgb2hm_", "rgb2hm msaa", hm_cfg, hm_batch, hm_batch, full_size_check(hm_cfg), hm_small[:2],
          fired=FIRED + HM_LOSSES)
+    # phases 29-30: HRNet-W18-small-v2, the flagship with pretrain="hr18sv2"
+    # (1024 features, no light estimator: HRNet has no low-level tap)
+    hrnet = step_config(pretrain="hr18sv2")
+    cell("hrnet_", "hrnet msaa", hrnet, batch, batch, full_size_check(hrnet), small_check(pretrain="hr18sv2")[:2])
+    # phase 31: the four-channel input (the images and the openpose
+    # heatmap), under the loss set JAX's step runs with four channels
+    fc = dataclasses.replace(flagship, four_channel=True, losses=FOUR_LOSSES)
+    fc_batch = four_channel_batch(batch)
+    fc_small = small_check(four_channel=True, losses=FOUR_LOSSES)
+    fc_small_batch = four_channel_batch(fc_small[1])
+    cell("four_channel_", "four_channel msaa", fc, fc_batch, fc_batch,
+         (dataclasses.replace(fc, compute_dtype="float32"), {k: v[:2].cpu() for k, v in fc_batch.items()},
+          f"res50, four channels, {S} px, 2 images"), (fc_small[0], fc_small_batch), fired=FOUR_LOSSES,
+         train_path=FOUR_PATH)
+    # phase 32: the CPM hand detector; phase 33: the demo, its turntable K1 at 2 x 2
+    launches["openpose"] = phase_openpose()
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="hifihr_demo_") as tmp:
+        launches["demo"], turntable = phase_demo(tmp)
+
     # phases 24-26: the flagship train step over two ranks, a process group
     # of one rank under NCCL, 1 rank against 2
     multi = {"dp_train": phase_dp_flagship(), "nccl_world1": phase_nccl_world1(), "invariance": phase_invariance()}
@@ -2851,6 +3094,12 @@ def main() -> int:
     table[0]["nimble_uv_hand"] = hands["nimble_uv_"]["K1"]
     table[2]["nimble_uv_hand"] = hands["nimble_uv_"]["K3"]
     table[2]["nimble_ssaa_hand"] = hands["nimble_ssaa_"]["K3"]
+    # PR 13's cells: K1 and K3 on the HRNet and four-channel steps' inputs,
+    # K1 at 2 x 2 on the demo's turntable
+    table[0]["hrnet_hand"] = hands["hrnet_"]["K1"]
+    table[2]["hrnet_hand"] = hands["hrnet_"]["K3"]
+    table[0]["four_channel_hand"] = hands["four_channel_"]["K1"]
+    table[0]["turntable_2x2"] = turntable
     for key, q in quad.items():
         table[1][f"texture_quad_{key}"] = dict(q["K2"], **q["sample"])
         table[2][f"texture_quad_{key}"] = q["K3"]

@@ -4,7 +4,8 @@ builds both packages.
 
 A value the port cannot run as the JAX package does raises
 NotImplementedError naming the feature; an unknown value raises ValueError,
-as in the JAX package.
+as in the JAX package. `pretrain="none"` builds here, as in the JAX package,
+and the model raises ValueError for it (models/hifihr.py).
 """
 
 from __future__ import annotations
@@ -15,7 +16,6 @@ import warnings
 from dataclasses import dataclass
 
 ENCODERS = ("res18", "res50", "res101", "hr18sv2", "effb3", "none")
-PORTED_ENCODERS = ("res18", "res50", "res101", "effb3")
 HAND_MODELS = ("mano", "nimble", "mano_new")
 DATASETS = ("FreiHand", "RHD", "HO3D", "Dart")
 AA_MODES = ("msaa", "ssaa")
@@ -166,8 +166,6 @@ class Config:
     def __post_init__(self):
         if self.pretrain not in ENCODERS:
             raise ValueError(f"unknown encoder pretrain={self.pretrain!r}; valid: {ENCODERS}")
-        if self.pretrain not in PORTED_ENCODERS:
-            raise NotImplementedError(f"pretrain={self.pretrain!r}: the port has {PORTED_ENCODERS}")
         if self.hand_model not in HAND_MODELS:
             raise ValueError(f"unknown hand_model={self.hand_model!r}; valid: {HAND_MODELS}")
         for d in tuple(self.train_datasets) + tuple(self.val_datasets):
@@ -175,8 +173,6 @@ class Config:
                 raise ValueError(f"unknown dataset {d!r}; valid: {DATASETS}")
         if self.aa_mode not in AA_MODES:
             raise NotImplementedError(f"aa_mode={self.aa_mode!r}: the port has {AA_MODES}")
-        if self.four_channel:  # the heatmap channel of the input
-            raise NotImplementedError("four_channel=True: not ported")
         if self.fsdp < 1:
             raise ValueError(f"fsdp={self.fsdp!r} must be at least 1")
         if self.compute_dtype not in ("bfloat16", "float32"):

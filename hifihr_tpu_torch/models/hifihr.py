@@ -1,7 +1,8 @@
 """Composite hand reconstruction model, MANO, NIMBLE and mano_new branches
 (counterpart of hifihr_tpu/models/hifihr.py::HiFiHR and attach_j2d).
 
-encoder -> light estimator -> hand parameter heads -> MANO or NIMBLE ->
+encoder (ResNet, EfficientNet-b3 or HRNet-W18-small-v2) -> light estimator
+(none for HRNet, which has no low-level tap) -> hand parameter heads -> MANO or NIMBLE ->
 root-centering -> MSAA or SSAA render (`config.aa_mode`). NIMBLE's MSAA
 render samples its PCA appearance at the face corners
 (`nimble_corner_tex`) or its UV maps per fragment; its SSAA render always
@@ -36,6 +37,7 @@ from hifihr_tpu_torch.hand.nimble import NimbleLayer
 from hifihr_tpu_torch.networks.efficientnet import EffNetEncoder
 from hifihr_tpu_torch.networks.heads import HandEncoder, LightEstimator
 from hifihr_tpu_torch.networks.hourglass import NetHMHG, heatmaps_to_uv
+from hifihr_tpu_torch.networks.hrnet import HRNetEncoder
 from hifihr_tpu_torch.networks.resnet import ResNetEncoder, StemConv
 from hifihr_tpu_torch.render.renderer import PhongRenderer, RenderSettings
 from hifihr_tpu_torch.render.shading import DirectionalLight
@@ -54,23 +56,33 @@ class HiFiHR(nn.Module):
     def __init__(self, config: Config):
         super().__init__()
         self.config = config
+        cin = 4 if config.four_channel else 3  # the heatmap channel rides the images
         if config.hand_model == "mano_new":
             # whatever config.pretrain says (JAX hifihr.py:47-55)
-            self.encoder = ResNetEncoder("res50")
+            self.encoder = ResNetEncoder("res50", cin)
             feat = self.encoder.backbone.out_channels
             self.beta_fc0, self.beta_fc1 = nn.Linear(feat, 512), nn.Linear(512, 10)
             self.theta_fc0, self.theta_fc1 = nn.Linear(feat, 512), nn.Linear(512, 48)
             self.mano = ManoLayer(ncomps=45)
             return
-        self.encoder = EffNetEncoder() if config.pretrain == "effb3" else ResNetEncoder(config.pretrain)
+        if config.pretrain in ("res18", "res50", "res101"):
+            self.encoder = ResNetEncoder(config.pretrain, cin)
+        elif config.pretrain == "effb3":
+            self.encoder = EffNetEncoder(cin=cin)
+        elif config.pretrain == "hr18sv2":
+            self.encoder = HRNetEncoder(cin)
+        else:  # "none": the Config takes it and the model refuses it, as JAX's does
+            raise ValueError(config.pretrain)
         backbone = self.encoder.backbone
         shape_nc, pose_nc, tex_nc = config.ncomps
         self.hand_encoder = HandEncoder(backbone.out_channels, shape_nc, pose_nc,
                                         config.use_mean_shape, config.hand_model, tex_nc, config.render)
-        if config.light_estimation:
+        # HRNet has no low-level tap: JAX never calls its light estimator, so
+        # flax creates no parameters for it, and neither does the port
+        if config.light_estimation and backbone.low_channels is not None:
             self.light_estimator = LightEstimator(backbone.low_channels)
         if config.rgb2hm:  # reference rgb2hm (utils/train_utils.py:104-111)
-            self.rgb2hm = NetHMHG(config.image_size)
+            self.rgb2hm = NetHMHG(config.image_size, cin=cin)
         settings = RenderSettings(image_size=config.image_size, aa_factor=config.aa_factor,
                                   aa_mode=config.aa_mode)
         if config.hand_model == "mano":
@@ -103,7 +115,8 @@ class HiFiHR(nn.Module):
     def forward(self, images: torch.Tensor, Ks: torch.Tensor | None = None,
                 root_xyz: torch.Tensor | None = None, dat_name: str = "FreiHand",
                 mode_train: bool = True) -> dict:
-        """images (B, S, S, 3) float in [0, 1]; Ks (B, 3, 3); root_xyz (B, 1, 3)."""
+        """images (B, S, S, 3) float in [0, 1] (4 channels with the heatmap
+        under `four_channel`); Ks (B, 3, 3); root_xyz (B, 1, 3)."""
         cfg = self.config
         if cfg.hand_model == "mano_new":
             return self._forward_mano_new(images)
@@ -111,7 +124,7 @@ class HiFiHR(nn.Module):
         with self._encoder_autocast(images.device):
             low, features = self.encoder(images)
         light_params = None
-        if cfg.light_estimation:
+        if cfg.light_estimation and low is not None:
             light_params = self.light_estimator(low.float())
 
         hand_params = self.hand_encoder(features)
@@ -216,8 +229,9 @@ def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
     """Seeded random initialisation from a torch.Generator, with flax's
     initialisers: zero biases, unit BatchNorm scales with running stats
     (0, 1), zero MMPool mix and vertex albedo; every conv as flax draws it,
-    the s2d stems (ResNet's and EfficientNet's) variance_scaling(2,
-    fan_out, truncated) over the s2d kernel's (M, M, 4C, O) shape and every
+    the s2d stems (ResNet's, EfficientNet's and HRNet's; C is 4 with
+    `four_channel`) variance_scaling(2, fan_out, truncated) over the s2d
+    kernel's (M, M, 4C, O) shape and every
     other conv (the encoders', the light estimator's) lecun_normal,
     truncated, with fan_in = (C_in / groups) k^2; the dense layers
     He-normal (fan_in), except mano_new's four (MANO_NEW_DENSE), which

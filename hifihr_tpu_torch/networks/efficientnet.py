@@ -103,11 +103,11 @@ class EfficientNet(nn.Module):
     """Backbone -> (low: block `low_block_idx`'s output, x: the head's
     output), NCHW."""
 
-    def __init__(self, variant: str = "effb3", low_block_idx: int = 4):
+    def __init__(self, variant: str = "effb3", low_block_idx: int = 4, cin: int = 3):
         super().__init__()
         width, depth = _PARAMS[variant]
         c_stem = _round_filters(32, width)
-        self.conv_stem = StemConv(c_stem, kernel_size=3, pad_lo=0)
+        self.conv_stem = StemConv(c_stem, kernel_size=3, pad_lo=0, cin=cin)
         self.bn_stem = _norm(c_stem)
         self.low_block_idx = low_block_idx
         self.n_blocks = 0
@@ -136,11 +136,12 @@ class EfficientNet(nn.Module):
 
 
 class EffNetEncoder(nn.Module):
-    """NHWC images in [0, 1] -> (low NCHW, feat (B, 1536) float32)."""
+    """NHWC images in [0, 1], `cin` channels -> (low NCHW, feat (B, 1536)
+    float32)."""
 
-    def __init__(self, variant: str = "effb3"):
+    def __init__(self, variant: str = "effb3", cin: int = 3):
         super().__init__()
-        self.backbone = EfficientNet(variant)
+        self.backbone = EfficientNet(variant, cin=cin)
 
     def forward(self, images: torch.Tensor):
         x = normalize_imagenet(images).permute(0, 3, 1, 2)  # channels-last NCHW view

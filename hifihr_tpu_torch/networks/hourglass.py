@@ -93,13 +93,15 @@ class Hourglass(nn.Module):
 
 
 class NetHMHG(nn.Module):
-    """images (B, S, S, 3) in [0, 1] -> a list of `num_stacks` heatmaps
-    (B, S/4, S/4, num_joints), NHWC as the JAX package returns them."""
+    """images (B, S, S, cin) in [0, 1] -> a list of `num_stacks` heatmaps
+    (B, S/4, S/4, num_joints), NHWC as the JAX package returns them; `cin`
+    is 4 with the `four_channel` input."""
 
-    def __init__(self, image_size: int = 224, num_stacks: int = 2, features: int = 256, num_joints: int = 21):
+    def __init__(self, image_size: int = 224, num_stacks: int = 2, features: int = 256, num_joints: int = 21,
+                 cin: int = 3):
         super().__init__()
         self.num_stacks = num_stacks
-        self.stem_conv = StemConv(64, 7, 3, bias=True)
+        self.stem_conv = StemConv(64, 7, 3, bias=True, cin=cin)
         self.stem_bn = _norm(64)
         self.stem_res1 = HGResidual(64, 128)
         self.stem_res2 = HGResidual(128, 128)

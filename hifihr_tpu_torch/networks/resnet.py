@@ -25,9 +25,12 @@ IMAGENET_STD = (0.229, 0.224, 0.225)
 
 
 def normalize_imagenet(images: torch.Tensor) -> torch.Tensor:
-    """NHWC float images in [0, 1] -> imagenet-normalised (3 channels)."""
-    mean = constant(IMAGENET_MEAN, images.device, images.dtype)
-    std = constant(IMAGENET_STD, images.device, images.dtype)
+    """NHWC float images in [0, 1] -> imagenet-normalised, over 3 or 4
+    channels: a 4th (the `four_channel` heatmap) at mean 0.5 and std 1.0,
+    shifted to [-0.5, 0.5] as in the reference (res_encoder.py:218-222)."""
+    extra = images.shape[-1] - 3
+    mean = constant(IMAGENET_MEAN + (0.5,) * extra, images.device, images.dtype)
+    std = constant(IMAGENET_STD + (1.0,) * extra, images.device, images.dtype)
     return (images - mean) / std
 
 
@@ -57,11 +60,14 @@ class StemConv(nn.Conv2d):
     form, a stride-1 M x M conv over 4C channels, which cuDNN runs faster
     than the 3-channel stride-2 conv for ResNet's stem
     (`chip_smoke.py --profile`, PERF.md). The hourglass's stem has a bias
-    (`bias=True`), as its StemConvS2D(use_bias=True)."""
+    (`bias=True`), as its StemConvS2D(use_bias=True). `cin` is 4 for the
+    `four_channel` input, whose heatmap channel StemConvS2D takes from the
+    input's shape."""
 
-    def __init__(self, cout: int = 64, kernel_size: int = 7, pad_lo: int = 3, bias: bool = False):
+    def __init__(self, cout: int = 64, kernel_size: int = 7, pad_lo: int = 3, bias: bool = False,
+                 cin: int = 3):
         self.taps, self.s2d_pad = s2d_geometry(kernel_size, pad_lo)
-        super().__init__(3, cout, 2 * self.taps, 2, 0, bias=bias)
+        super().__init__(cin, cout, 2 * self.taps, 2, 0, bias=bias)
 
     def forward(self, x):
         b, c, h, w = x.shape
@@ -129,10 +135,10 @@ _CONFIGS = {
 class ResNet(nn.Module):
     """Backbone -> (low: layer2 output, x: layer4 output), NCHW."""
 
-    def __init__(self, variant: str = "res50"):
+    def __init__(self, variant: str = "res50", cin: int = 3):
         super().__init__()
         block_cls, depths = _CONFIGS[variant]
-        self.conv1 = StemConv()
+        self.conv1 = StemConv(cin=cin)
         self.bn1 = BatchNorm2d(64)
         self.blocks = []
         cin = 64
@@ -158,11 +164,12 @@ class ResNet(nn.Module):
 
 
 class ResNetEncoder(nn.Module):
-    """NHWC images in [0, 1] -> (low NCHW, pooled (B, C) float32)."""
+    """NHWC images in [0, 1], `cin` channels -> (low NCHW, pooled (B, C)
+    float32)."""
 
-    def __init__(self, variant: str = "res50"):
+    def __init__(self, variant: str = "res50", cin: int = 3):
         super().__init__()
-        self.backbone = ResNet(variant)
+        self.backbone = ResNet(variant, cin)
         self.mmpool = MMPool()
 
     def forward(self, images: torch.Tensor):

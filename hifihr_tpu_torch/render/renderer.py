@@ -29,8 +29,11 @@ row, 9 + 3 (6 + 2) = 33 floats for NIMBLE; in SSAA
 (`texture.sample_texture`: a K2 fetch of the packed texel quads, K3 in
 backward); a per-vertex chart alone rides the vertex channels.
 
-Faces are always put in the Morton order of the template: face ids, and so
-the rasterisers' tie rules, are internal to the renderer.
+Given a `sort_template`, the faces are put in the Morton order of the
+template: face ids, and so the rasterisers' tie rules, are then internal to
+the renderer. Without one (JAX's `sort_template=None`, as the turntable of
+utils/visualize.py renders) the faces keep their given order, on which K1's
+rule "ties go to the lower id" then depends.
 """
 
 from __future__ import annotations
@@ -116,11 +119,11 @@ def _pixel_ray_points(zbuf, mask, K, size):
 
 class PhongRenderer(nn.Module):
     """Built once with the static faces, Morton-ordered over `sort_template`
-    (the template mesh); called with batched geometry. The faces are a
-    non-persistent buffer, so `.to(device)` moves them and the state dict
-    does not hold them."""
+    (the template mesh) where one is given, else in their given order;
+    called with batched geometry. The faces are a non-persistent buffer, so
+    `.to(device)` moves them and the state dict does not hold them."""
 
-    def __init__(self, faces, sort_template, settings: RenderSettings = RenderSettings(),
+    def __init__(self, faces, sort_template=None, settings: RenderSettings = RenderSettings(),
                  face_uv=None, corner_mean=None, corner_basis=None, vert_uv=None):
         """faces (F, 3); optional per-face tables, permuted with the faces:
         face_uv (F, 3, 2) atlas corners, and the corner-sampled appearance
@@ -128,7 +131,7 @@ class PhongRenderer(nn.Module):
         the per-vertex chart vert_uv (V, 2), used where face_uv is not
         given."""
         super().__init__()
-        order = morton_face_order(sort_template, faces)
+        order = slice(None) if sort_template is None else morton_face_order(sort_template, faces)
 
         def buf(name, a, dtype=torch.float32):
             t = None if a is None else torch.as_tensor(np.asarray(a)[order], dtype=dtype)

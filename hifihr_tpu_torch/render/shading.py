@@ -14,6 +14,8 @@ from typing import NamedTuple
 
 import torch
 
+from hifihr_tpu_torch import constant
+
 # the JAX package's default Materials (grey, so one scalar per term)
 MAT_AMBIENT, MAT_DIFFUSE, MAT_SPECULAR, MAT_SHININESS = 1.0, 0.8, 0.2, 30.0
 
@@ -31,10 +33,13 @@ class DirectionalLight(NamedTuple):
 
     @staticmethod
     def default(batch: int, dtype=torch.float32, device=None) -> "DirectionalLight":
+        device = torch.get_default_device() if device is None else device
+
         def full(x):
             return torch.full((batch, 3), x, dtype=dtype, device=device)
 
-        direction = torch.tensor([[0.0, 0.0, -1.0]], dtype=dtype, device=device).repeat(batch, 1)
+        # a cached device constant: a fresh host copy would make the step wait
+        direction = constant([[0.0, 0.0, -1.0]], device, dtype).repeat(batch, 1)
         return DirectionalLight(full(0.5), full(0.3), full(0.2), direction)
 
 

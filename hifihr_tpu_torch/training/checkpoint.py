@@ -16,6 +16,12 @@ The trained parameters are views into Adam's flat buffer
 (training/train_state.py), so a restore copies into them in place; it never
 rebinds a parameter.
 
+`load_flax_export` reads a JAX package checkpoint, exported to an npz by
+tools/export_flax_checkpoint.py (the port does not import orbax or JAX):
+the parameters and BatchNorm statistics through
+`convert.state_dict_from_flax`, Adam's moments into the flat buffer, its
+count and the epoch.
+
 Over several ranks every rank calls `save`: under fsdp the moments are
 first gathered over the fsdp group, so a checkpoint holds them whole and
 loads at any world size and any fsdp; rank 0 alone writes, and the others
@@ -119,3 +125,55 @@ class CheckpointManager:
             opt.load_moments(saved["mu"], saved["nu"])
             opt.count.copy_(saved["count"])
         return state, int(stored.get("epoch", 0))
+
+
+def _nested(flat: dict, prefix: str) -> dict:
+    """The keys '<prefix>/a/b/...' of an export as a nested dict."""
+    tree: dict = {}
+    for key, a in flat.items():
+        if key.startswith(prefix + "/"):
+            *parents, leaf = key[len(prefix) + 1:].split("/")
+            node = tree
+            for p in parents:
+                node = node.setdefault(p, {})
+            node[leaf] = a
+    return tree
+
+
+@torch.no_grad()
+def load_flax_export(npz_path: str, state: TrainState) -> tuple[TrainState, int]:
+    """A JAX checkpoint's export (tools/export_flax_checkpoint.py) into
+    `state` in place; returns (state, epoch). Every parameter and running
+    statistic of the export is copied into the model (all of the model's
+    must be there); Adam's moments, laid out over the trained parameters
+    in the flat buffer's order and strides, and its count are loaded; the
+    export must hold moments for exactly the trained parameters, as optax
+    keeps none for the ones multi_transform freezes."""
+    import numpy as np
+
+    from hifihr_tpu_torch.convert import state_dict_from_flax
+
+    with np.load(npz_path) as z:
+        flat = {k: z[k] for k in z.files}
+    sd = state_dict_from_flax({"params": _nested(flat, "params"), "batch_stats": _nested(flat, "batch_stats")})
+    model_sd = state.model.state_dict()
+    missing = sorted(set(model_sd) - set(sd))
+    if missing:
+        raise KeyError(f"the export lacks {len(missing)} of the model's tensors, e.g. {missing[:3]}")
+    for name, t in model_sd.items():
+        t.copy_(sd[name])
+    opt = state.optimizer
+    names = {id(p): n for n, p in state.model.named_parameters()}
+    trained = [names[id(p)] for p in opt.params]
+    moments = []
+    for kind in ("mu", "nu"):
+        m = state_dict_from_flax({"params": _nested(flat, kind)})
+        if set(m) != set(trained):
+            raise KeyError(f"the export's {kind} covers {len(m)} parameters, the state trains {len(trained)}")
+        full = torch.zeros(opt.n, dtype=torch.float32, device=opt.flat.device)
+        for p, name in zip(opt.params, trained):
+            full.as_strided(p.shape, p.stride(), p.storage_offset()).copy_(m[name])
+        moments.append(full)
+    opt.load_moments(*moments)
+    opt.count.fill_(int(flat["count"]))
+    return state, int(flat["epoch"])

@@ -42,14 +42,15 @@ def test_config_from_one_dict():
     for k in d:
         assert getattr(defaults, k) == getattr(JConfig(), k)
     # the model variants the port runs since mano_new and NIMBLE's UV and
-    # SSAA paths came, and since the rgb2hm branch and the fsdp mesh came
+    # SSAA paths came, since the rgb2hm branch and the fsdp mesh came, and
+    # since HRNet and the four-channel input came
     for good in (dict(hand_model="mano_new"), dict(hand_model="nimble", aa_mode="ssaa"),
                  dict(hand_model="nimble", nimble_corner_tex=False), dict(test_refinement=True),
-                 dict(fsdp=2), dict(rgb2hm=True), dict(freeze_hm_estimator=True)):
+                 dict(fsdp=2), dict(rgb2hm=True), dict(freeze_hm_estimator=True),
+                 dict(pretrain="hr18sv2"), dict(four_channel=True)):
         assert Config(**good).to_dict() == JConfig(**good).to_dict()
-    for bad in (dict(aa_mode="fxaa"), dict(four_channel=True)):
-        with pytest.raises(NotImplementedError):
-            Config(**bad)
+    with pytest.raises(NotImplementedError):
+        Config(aa_mode="fxaa")
 
 
 def test_axis_angle_to_matrix():

@@ -6,6 +6,22 @@ Inputs are made from numpy seeds and handed to both packages as numpy arrays.
 from __future__ import annotations
 
 import numpy as np
+import pytest
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for torch while a module that imports this
+    fixture runs, then the count it had. The suite runs several workers at
+    once, and torch's threads in each oversubscribe the host's cores:
+    run side by side, the PR 13 files took 178 s with torch's default
+    threads and 87 s with one (measured here on 8 cores)."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def fake_K(batch: int, size: int) -> np.ndarray:
@@ -36,11 +52,37 @@ def randomize_variables(variables: dict, seed: int) -> dict:
                 tree[k] = rng.uniform(0.5, 1.5, x.shape).astype(np.float32)
 
     walk(v.get("batch_stats", {}))
-    if "mmpool" in v["params"]["encoder"]:  # the ResNet encoders' pool
+    if "mmpool" in v["params"].get("encoder", {}):  # the ResNet encoders' pool
         v["params"]["encoder"]["mmpool"]["p"] = rng.randn(1).astype(np.float32)
     if "vert_tex" in v["params"]:
         v["params"]["vert_tex"] = (rng.randn(778, 3) * 0.3).astype(np.float32)
     return v
+
+
+def seeded_variables(shapes: dict, seed: int) -> dict:
+    """Flax variables of the shapes of `shapes` (jax.eval_shape of a model's
+    init), drawn in numpy instead of by the model's init, whose jitted
+    compile takes longer than the test around it: conv kernels
+    lecun_normal-scaled (std sqrt(1 / fan_in)), dense kernels He-scaled,
+    biases 0, BatchNorm scales 1, then `randomize_variables`."""
+    rng = np.random.RandomState(seed)
+
+    def draw(tree, name=""):
+        out = {}
+        for k, x in tree.items():
+            if hasattr(x, "items"):
+                out[k] = draw(x, k)
+            elif k == "kernel":
+                fan_in = int(np.prod(x.shape[:-1]))
+                gain = 2.0 if len(x.shape) == 2 else 1.0
+                out[k] = (rng.randn(*x.shape) * (gain / fan_in) ** 0.5).astype(np.float32)
+            elif k == "scale" or k == "var":
+                out[k] = np.ones(x.shape, np.float32)
+            else:
+                out[k] = np.zeros(x.shape, np.float32)
+        return out
+
+    return randomize_variables(draw(shapes), seed)
 
 
 def jax_msaa_select_op_by_op(self, verts_cam, K_base, record=None):
