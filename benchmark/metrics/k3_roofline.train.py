@@ -1,0 +1,7 @@
+"""k3_roofline.train: K3's least time per call over its device time per call."""
+
+from benchmark.measures import kernel_roofline
+
+
+def read(run):
+    return kernel_roofline(run, "K3")
