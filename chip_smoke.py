@@ -559,15 +559,18 @@ def route_parts_ms(route, what: str) -> dict:
     return parts
 
 
-def launches_per_route(fn, wrapper, what: str) -> int:
-    """The launches one call of `fn` makes in the route of `wrapper`
-    (rasterize_msaa for K1, rasterize_face_id for K4), as the C route counts
-    them where it enqueues each one."""
-    before = wrapper.device_launches, wrapper.launches
+def launches_per_route(fn, route: str, what: str) -> int:
+    """The launches one call of `fn` makes in the route whose counters are
+    `<route>.launches` and `<route>.device_launches` (rasterize_msaa for
+    K1, rasterize_face_id for K4), as the C route counts them where it
+    enqueues each one."""
+    from hifihr_tpu_torch.utils.profiling import counters
+
+    before = counters[f"{route}.device_launches"], counters[f"{route}.launches"]
     fn()
-    routes = wrapper.launches - before[1]
+    routes = counters[f"{route}.launches"] - before[1]
     check(routes == 1, f"one {what} route per call ({routes})")
-    return wrapper.device_launches - before[0]
+    return counters[f"{route}.device_launches"] - before[0]
 
 
 def k1_route(coef: torch.Tensor, bbox: torch.Tensor, what: str, size: int = S,
@@ -592,7 +595,7 @@ def k1_route(coef: torch.Tensor, bbox: torch.Tensor, what: str, size: int = S,
     covered = (fid_p >= 0).float().mean().item()
     check(covered > 0.01, f"K1 scene covers pixels on {what}")
     route = lambda: k1.msaa_select_cuda(coef, bbox, size, samples)  # noqa: E731
-    per_route = launches_per_route(route, k1.rasterize_msaa, "K1")
+    per_route = launches_per_route(route, "rasterize_msaa", "K1")
     check(per_route == len(ROUTE_PARTS), f"K1's route is a zero fill, a bin and a fine launch on {what}: "
                                       f"{per_route} launches")
     ms = time_ms(route, reps=20)
@@ -1014,7 +1017,7 @@ def k4_route(tri: torch.Tensor, size: int, what: str, ref: tuple | None = None) 
     covered = (fid_p >= 0).float().mean().item()
     check(covered > 0.01, f"K4 scene covers pixels on {what}")
     route = lambda: k4.select_face_id_cuda(tri, size)  # noqa: E731
-    per_route = launches_per_route(route, k4.rasterize_face_id, "K4")
+    per_route = launches_per_route(route, "rasterize_face_id", "K4")
     check(per_route == len(ROUTE_PARTS), f"K4's route is a zero fill, a bin and a fine launch on {what}: "
                                          f"{per_route} launches")
     ms = time_ms(route, reps=20)
@@ -1227,33 +1230,28 @@ def time_steps(run, n: int) -> dict:
 
 
 def reset_launches() -> None:
-    from hifihr_tpu_torch.render import gather, raster, raster_msaa
+    from hifihr_tpu_torch.utils.profiling import counters
 
-    raster_msaa.rasterize_msaa.launches = 0
-    raster_msaa.rasterize_msaa.device_launches = 0
-    gather.gather_rows.launches = 0
-    gather.scatter_rows.launches = 0
-    raster.rasterize_face_id.launches = 0
-    raster.rasterize_face_id.device_launches = 0
+    for name in counters:
+        counters[name] = 0
 
 
 def read_launches() -> dict:
-    from hifihr_tpu_torch.render import gather, raster, raster_msaa
+    from hifihr_tpu_torch.utils.profiling import counters
 
-    return {"K1 msaa_raster": raster_msaa.rasterize_msaa.launches,
-            "K2 gather_rows": gather.gather_rows.launches,
-            "K3 scatter_rows": gather.scatter_rows.launches,
-            "K4 face_raster": raster.rasterize_face_id.launches}
+    return {"K1 msaa_raster": counters["rasterize_msaa.launches"],
+            "K2 gather_rows": counters["gather_rows.launches"],
+            "K3 scatter_rows": counters["scatter_rows.launches"],
+            "K4 face_raster": counters["rasterize_face_id.launches"]}
 
 
 def check_route_launches(launches: dict, what: str) -> None:
     """Every K1 and K4 route of the run just read made its three launches,
     as the C routes counted them."""
-    from hifihr_tpu_torch.render import raster, raster_msaa
+    from hifihr_tpu_torch.utils.profiling import counters
 
-    for name, wrapper in (("K1 msaa_raster", raster_msaa.rasterize_msaa),
-                          ("K4 face_raster", raster.rasterize_face_id)):
-        made = wrapper.device_launches
+    for name, route in (("K1 msaa_raster", "rasterize_msaa"), ("K4 face_raster", "rasterize_face_id")):
+        made = counters[f"{route}.device_launches"]
         check(made == len(ROUTE_PARTS) * launches[name],
               f"{len(ROUTE_PARTS)} launches in each of the {launches[name]} {name} routes of {what}: {made}")
 

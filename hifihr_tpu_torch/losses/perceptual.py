@@ -26,6 +26,7 @@ from torch import nn
 from hifihr_tpu_torch import variance_scaling_
 from hifihr_tpu_torch.assets import VGG_NPZ
 from hifihr_tpu_torch.networks.resnet import normalize_imagenet
+from hifihr_tpu_torch.utils import profiling
 
 _CFG = (64, 64, "M", 128, 128, "M", 256, 256)  # through relu3_2
 
@@ -78,7 +79,10 @@ def load_or_init_vgg(device=None, seed: int = 0, path: str = VGG_NPZ) -> VGG19Fe
 
 def perceptual_loss(vgg: VGG19Features, pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     """Mean squared difference of the VGG features; no gradient to the target."""
-    f_pred = vgg(pred)
-    with torch.no_grad():
-        f_tgt = vgg(target)
-    return ((f_pred - f_tgt) ** 2).mean()
+    with profiling.span("loss.perceptual", pred) as sp:
+        f_pred = vgg(pred)
+        with torch.no_grad():
+            f_tgt = vgg(target)
+        out = ((f_pred - f_tgt) ** 2).mean()
+        sp.outputs(out)
+    return out

@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as Fn
 
 from hifihr_tpu_torch import constant
+from hifihr_tpu_torch.utils import profiling
 
 
 @functools.lru_cache(maxsize=8)
@@ -35,16 +36,21 @@ def ssim(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11) -> torch
     c = img1.shape[-1]
     x = img1.permute(0, 3, 1, 2)
     y = img2.permute(0, 3, 1, 2)
-    w = constant(_depthwise_window(5 * c, window_size), img1.device, img1.dtype)
-    moments = Fn.conv2d(torch.cat([x, y, x * x, y * y, x * y], dim=1), w,
-                        padding=window_size // 2, groups=5 * c)
-    mu1, mu2, e11, e22, e12 = moments.split(c, dim=1)
-    mu1_sq, mu2_sq, mu12 = mu1 * mu1, mu2 * mu2, mu1 * mu2
-    sigma1_sq = e11 - mu1_sq
-    sigma2_sq = e22 - mu2_sq
-    sigma12 = e12 - mu12
-    c1, c2 = 0.01**2, 0.03**2
-    ssim_map = ((2 * mu12 + c1) * (2 * sigma12 + c2)) / (
-        (mu1_sq + mu2_sq + c1) * (sigma1_sq + sigma2_sq + c2)
-    )
-    return ssim_map.mean()
+    # the span starts at the permuted views (no device work), made right
+    # before it, so its backward ends where their gradients are complete
+    with profiling.span("loss.ssim", (x, y)) as sp:
+        w = constant(_depthwise_window(5 * c, window_size), img1.device, img1.dtype)
+        moments = Fn.conv2d(torch.cat([x, y, x * x, y * y, x * y], dim=1), w,
+                            padding=window_size // 2, groups=5 * c)
+        mu1, mu2, e11, e22, e12 = moments.split(c, dim=1)
+        mu1_sq, mu2_sq, mu12 = mu1 * mu1, mu2 * mu2, mu1 * mu2
+        sigma1_sq = e11 - mu1_sq
+        sigma2_sq = e22 - mu2_sq
+        sigma12 = e12 - mu12
+        c1, c2 = 0.01**2, 0.03**2
+        ssim_map = ((2 * mu12 + c1) * (2 * sigma12 + c2)) / (
+            (mu1_sq + mu2_sq + c1) * (sigma1_sq + sigma2_sq + c2)
+        )
+        out = ssim_map.mean()
+        sp.outputs(out)
+    return out

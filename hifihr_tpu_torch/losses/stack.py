@@ -46,6 +46,7 @@ from hifihr_tpu_torch.losses.perceptual import load_or_init_vgg, perceptual_loss
 from hifihr_tpu_torch.losses.ssim import ssim
 from hifihr_tpu_torch.parallel.mesh import Mesh, all_reduce_sum
 from hifihr_tpu_torch.render.mesh import uniform_laplacian
+from hifihr_tpu_torch.utils import profiling
 
 REF_BONE_LENGTH = 0.0282  # metres, FreiHAND joints 9-10 prior (losses.py:297)
 # open_2dj's per-keypoint weights: the wrist and the fingertips count more
@@ -81,6 +82,13 @@ class LossComputer:
 
     def __call__(self, examples: Mapping[str, torch.Tensor], outputs: Mapping[str, torch.Tensor],
                  dat_name: str, sched: Mapping[str, torch.Tensor] | None = None) -> dict:
+        with profiling.span("loss", outputs) as sp:
+            d = self._terms(examples, outputs, dat_name, sched)
+            sp.outputs(d["total"])  # the terms leave the step detached
+        return d
+
+    def _terms(self, examples: Mapping[str, torch.Tensor], outputs: Mapping[str, torch.Tensor],
+               dat_name: str, sched: Mapping[str, torch.Tensor] | None) -> dict:
         cfg = self.config
         if dat_name == "FreiHand" and cfg.losses_frei:
             loss_used = cfg.losses_frei
@@ -248,4 +256,4 @@ class LossComputer:
             self._warned_unfired.add(key)
             warnings.warn(f"configured losses {unfired} did not fire for dataset {dat_name}: missing model "
                           f"outputs or batch keys (reference asserts these preconditions, losses.py:246)",
-                          stacklevel=3)
+                          stacklevel=4)

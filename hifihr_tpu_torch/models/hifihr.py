@@ -41,6 +41,7 @@ from hifihr_tpu_torch.networks.hrnet import HRNetEncoder
 from hifihr_tpu_torch.networks.resnet import ResNetEncoder, StemConv
 from hifihr_tpu_torch.render.renderer import PhongRenderer, RenderSettings
 from hifihr_tpu_torch.render.shading import DirectionalLight
+from hifihr_tpu_torch.utils import profiling
 
 ROOT_ID = 9  # FreiHAND middle-MCP root
 ROOT_ID_NIMBLE = 11  # NIMBLE's 25-joint root
@@ -121,62 +122,69 @@ class HiFiHR(nn.Module):
         if cfg.hand_model == "mano_new":
             return self._forward_mano_new(images)
         b = images.shape[0]
-        with self._encoder_autocast(images.device):
-            low, features = self.encoder(images)
-        light_params = None
-        if cfg.light_estimation and low is not None:
-            light_params = self.light_estimator(low.float())
-
-        hand_params = self.hand_encoder(features)
+        with profiling.span("encoder") as sp:
+            with self._encoder_autocast(images.device):
+                low, features = self.encoder(images)
+            light_params = None
+            if cfg.light_estimation and low is not None:
+                light_params = self.light_estimator(low.float())
+            hand_params = self.hand_encoder(features)
+            hm_uv = None
+            if cfg.rgb2hm:
+                # each stack's soft-argmax uv at heatmap resolution, scaled to
+                # image pixels (compute_uv_from_integral, visualize_util.py:859-880)
+                hms = self.rgb2hm(images)
+                hm_scale = images.shape[1] / hms[-1].shape[1]
+                hm_uv = tuple(heatmaps_to_uv(h) * hm_scale for h in hms)
+            sp.outputs(hand_params, light_params, hm_uv)
         outputs = dict(hand_params)
-        if cfg.rgb2hm:
-            # each stack's soft-argmax uv at heatmap resolution, scaled to
-            # image pixels (compute_uv_from_integral, visualize_util.py:859-880)
-            hms = self.rgb2hm(images)
-            hm_scale = images.shape[1] / hms[-1].shape[1]
-            hm_uv = tuple(heatmaps_to_uv(h) * hm_scale for h in hms)
+        if hm_uv is not None:
             outputs["hm_j2d_list"] = hm_uv
             outputs["hm_j2d"] = hm_uv[-1]
-        if cfg.hand_model == "mano":
-            mano_out = self.mano(hand_params["pose_params"], hand_params["shape_params"])
-            verts = mano_out.verts
-            joints = regress_joints_frei(verts, self.mano.J_regressor)
-            outputs["tsa_poses"] = mano_out.full_pose
-        else:
-            outputs.update(self.nimble(hand_params))
-            joints = remap(outputs["joints"], MANO_TO_FREI)  # legacy MANO order -> FreiHAND
-            verts = outputs["mano_verts"]
-
         ho3d_eval = dat_name == "HO3D" and not mode_train
-        pred_root = joints[:, 0:1] if ho3d_eval else joints[:, ROOT_ID:ROOT_ID + 1]
-        outputs["joints"] = joints - pred_root
-        outputs["mano_verts"] = verts - pred_root
-        if cfg.hand_model == "nimble":
-            nj = outputs["nimble_joints"]
-            nroot = nj[:, 0:1] if ho3d_eval else nj[:, ROOT_ID_NIMBLE:ROOT_ID_NIMBLE + 1]
-            outputs["nimble_joints"] = nj - nroot
+        with profiling.span("hand", hand_params) as sp:
+            if cfg.hand_model == "mano":
+                mano_out = self.mano(hand_params["pose_params"], hand_params["shape_params"])
+                verts = mano_out.verts
+                joints = regress_joints_frei(verts, self.mano.J_regressor)
+                outputs["tsa_poses"] = mano_out.full_pose
+            else:
+                outputs.update(self.nimble(hand_params))
+                joints = remap(outputs["joints"], MANO_TO_FREI)  # legacy MANO order -> FreiHAND
+                verts = outputs["mano_verts"]
+
+            pred_root = joints[:, 0:1] if ho3d_eval else joints[:, ROOT_ID:ROOT_ID + 1]
+            outputs["joints"] = joints - pred_root
+            outputs["mano_verts"] = verts - pred_root
+            if cfg.hand_model == "nimble":
+                nj = outputs["nimble_joints"]
+                nroot = nj[:, 0:1] if ho3d_eval else nj[:, ROOT_ID_NIMBLE:ROOT_ID_NIMBLE + 1]
+                outputs["nimble_joints"] = nj - nroot
+            sp.outputs(outputs)
 
         if cfg.render and Ks is not None and root_xyz is not None:
-            texture_image = None
-            if cfg.hand_model == "mano":
-                render_verts, albedo, tex_coef = outputs["mano_verts"] + root_xyz, self._vertex_albedo(b), None
-            else:  # offset by the NIMBLE root
-                render_verts = outputs["skin_verts"] - nroot + root_xyz
-                albedo, tex_coef = outputs["skin_albedo"], hand_params["texture_params"]
-                if self.nimble.vert_uv_np is not None:
-                    texture_image = outputs["textures"]
-            if light_params is not None:
-                light = DirectionalLight.from_estimator(light_params["colors"],
-                                                        light_params["directions"])
-            else:
-                light = DirectionalLight.default(b, images.dtype, images.device)
-            rgba = self.renderer(render_verts, albedo, Ks[:, :3, :3], light, tex_coef=tex_coef,
-                                 texture_image=texture_image)
-            re_sil = (rgba[..., 3:4] > 0).to(images.dtype) * 255.0
-            outputs["re_img"] = rgba[..., :3]
-            outputs["re_sil"] = re_sil
-            outputs["re_depth"] = rgba[..., 4]
-            outputs["maskRGBs"] = images * (re_sil > 0).to(images.dtype)
+            with profiling.span("renderer", (outputs, light_params)) as sp:
+                texture_image = None
+                if cfg.hand_model == "mano":
+                    render_verts, albedo, tex_coef = outputs["mano_verts"] + root_xyz, self._vertex_albedo(b), None
+                else:  # offset by the NIMBLE root
+                    render_verts = outputs["skin_verts"] - nroot + root_xyz
+                    albedo, tex_coef = outputs["skin_albedo"], hand_params["texture_params"]
+                    if self.nimble.vert_uv_np is not None:
+                        texture_image = outputs["textures"]
+                if light_params is not None:
+                    light = DirectionalLight.from_estimator(light_params["colors"],
+                                                            light_params["directions"])
+                else:
+                    light = DirectionalLight.default(b, images.dtype, images.device)
+                rgba = self.renderer(render_verts, albedo, Ks[:, :3, :3], light, tex_coef=tex_coef,
+                                     texture_image=texture_image)
+                re_sil = (rgba[..., 3:4] > 0).to(images.dtype) * 255.0
+                outputs["re_img"] = rgba[..., :3]
+                outputs["re_sil"] = re_sil
+                outputs["re_depth"] = rgba[..., 4]
+                outputs["maskRGBs"] = images * (re_sil > 0).to(images.dtype)
+                sp.outputs(outputs["re_img"], outputs["re_depth"], outputs["maskRGBs"])
 
         outputs["mano_faces"] = self.mano.faces
         if light_params is not None:

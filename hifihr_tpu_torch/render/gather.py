@@ -25,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from hifihr_tpu_torch import kernels
+from hifihr_tpu_torch.utils import profiling
 
 
 def gather_rows_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -80,7 +81,7 @@ def _gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     err = lib.hifihr_gather_rows(table.data_ptr(), idx.data_ptr(), B, F, D, P,
                                  out.data_ptr(), kernels.stream_ptr(table.device))
     kernels.check(err, "gather_rows")
-    gather_rows.launches += 1
+    profiling.counters["gather_rows.launches"] += 1
     return out
 
 
@@ -97,7 +98,7 @@ def _scatter(values: torch.Tensor, idx: torch.Tensor, n_rows: int) -> torch.Tens
     err = lib.hifihr_scatter_rows(values.data_ptr(), idx.data_ptr(), B, n_rows, D, P,
                                   out.data_ptr(), kernels.stream_ptr(values.device))
     kernels.check(err, "scatter_rows")
-    scatter_rows.launches += 1
+    profiling.counters["scatter_rows.launches"] += 1
     return out
 
 
@@ -128,16 +129,12 @@ class _ScatterRows(torch.autograd.Function):
 
 def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """K2, differentiable in `table` (its backward is K3). Counts K2 kernel
-    launches on `gather_rows.launches`."""
+    launches on the counter `gather_rows.launches` (utils/profiling.py)."""
     return _GatherRows.apply(table, idx)
 
 
 def scatter_rows(values: torch.Tensor, idx: torch.Tensor, n_rows: int) -> torch.Tensor:
     """K3, differentiable in `values` (its backward is K2). Counts K3 kernel
-    launches, the backward of gather_rows included, on
-    `scatter_rows.launches`."""
+    launches, the backward of gather_rows included, on the counter
+    `scatter_rows.launches` (utils/profiling.py)."""
     return _ScatterRows.apply(values, idx, n_rows)
-
-
-gather_rows.launches = 0
-scatter_rows.launches = 0

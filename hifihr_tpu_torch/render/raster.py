@@ -29,9 +29,10 @@ K4's contract, at every pixel centre (u, v) = (col + 0.5, row + 0.5):
   face_id (B, S, S) int32 (-1 on background) and zbuf (B, S, S) float32
   (inf on background). No gradient.
 
-Launch counts: `rasterize_face_id.launches` counts routes (one per call on a
-CUDA tensor); `rasterize_face_id.device_launches` counts the route's launches
-(3 per route with F > 0), each counted by the C route where it enqueues it.
+Launch counts (utils/profiling.py's `counters`): `rasterize_face_id.launches`
+counts routes (one per call on a CUDA tensor);
+`rasterize_face_id.device_launches` counts the route's launches (3 per route
+with F > 0), each counted by the C route where it enqueues it.
 """
 
 from __future__ import annotations
@@ -43,6 +44,7 @@ import torch
 
 from hifihr_tpu_torch import kernels
 from hifihr_tpu_torch.render.mesh import gather_face_rows
+from hifihr_tpu_torch.utils import profiling
 
 
 def project_to_screen(verts_cam: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
@@ -142,9 +144,9 @@ def rasterize_face_id_plain(verts_screen: torch.Tensor, faces: torch.Tensor, ima
 def select_face_id_cuda(tri: torch.Tensor, image_size: int):
     """Launch the route of csrc/raster_face.cu on K4's (B, F, 9) input: zero
     fill of the bin bitmasks (sized by the C side, `hifihr_face_mask_words`),
-    bin kernel, fine kernel. Counts the route on `rasterize_face_id.launches` and
-    adds the launches the C route counted as it enqueued them to
-    `rasterize_face_id.device_launches`."""
+    bin kernel, fine kernel. Counts the route on the counter
+    `rasterize_face_id.launches` and adds the launches the C route counted
+    as it enqueued them to `rasterize_face_id.device_launches`."""
     B, F, _ = tri.shape
     S = image_size
     if tri.device.type != "cuda":
@@ -161,10 +163,10 @@ def select_face_id_cuda(tri: torch.Tensor, image_size: int):
     launched = ctypes.c_int(0)
     err = lib.hifihr_face_route(tri.data_ptr(), B, F, S, mask.data_ptr(), fid.data_ptr(),
                                 zbuf.data_ptr(), kernels.stream_ptr(tri.device), ctypes.byref(launched))
-    rasterize_face_id.device_launches += launched.value
+    profiling.counters["rasterize_face_id.device_launches"] += launched.value
     kernels.check(err, "raster_face")
     if B and S:
-        rasterize_face_id.launches += 1
+        profiling.counters["rasterize_face_id.launches"] += 1
     return fid, zbuf
 
 
@@ -176,7 +178,3 @@ def rasterize_face_id(verts_screen: torch.Tensor, faces: torch.Tensor, image_siz
     if verts_screen.device.type != "cuda":
         raise ValueError(f"rasterize_face_id: unsupported device {verts_screen.device}")
     return select_face_id_cuda(face_triangles(verts_screen, faces), image_size)
-
-
-rasterize_face_id.launches = 0
-rasterize_face_id.device_launches = 0

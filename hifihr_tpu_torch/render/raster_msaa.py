@@ -22,9 +22,10 @@ float32 = covered subsamples / samples^2, zbuf (B, S, S) float32 = the chosen
 face's z-plane at the pixel centre clamped to [zmin, zmax] (inf on
 background). The renderer recomputes its own depth and ignores zbuf.
 
-Launch counts: `rasterize_msaa.launches` counts routes (one per call on a
-CUDA tensor); `rasterize_msaa.device_launches` counts the route's launches
-(3 per route with F > 0), each counted by the C route where it enqueues it.
+Launch counts (utils/profiling.py's `counters`): `rasterize_msaa.launches`
+counts routes (one per call on a CUDA tensor); `rasterize_msaa.device_launches`
+counts the route's launches (3 per route with F > 0), each counted by the C
+route where it enqueues it.
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ import torch
 
 from hifihr_tpu_torch import constant, kernels
 from hifihr_tpu_torch.render.mesh import gather_face_rows
+from hifihr_tpu_torch.utils import profiling
 
 N_REC = 15  # floats per face record
 _INERT = np.zeros(N_REC, np.float32)  # the record of a face that never covers
@@ -162,9 +164,9 @@ def msaa_select_cuda(coef: torch.Tensor, bbox: torch.Tensor, image_size: int,
                      samples: int = 3):
     """Launch the route of csrc/raster_msaa.cu on the prep's records: zero
     fill of the (B, T, T, ceil(F / 32)) tile bitmasks (T = ceil(S / 16);
-    sized by the C side, `hifihr_msaa_mask_words`), bin kernel, fine kernel. Counts the route on `rasterize_msaa.launches`
-    and adds the launches the C route counted as it enqueued them to
-    `rasterize_msaa.device_launches`."""
+    sized by the C side, `hifihr_msaa_mask_words`), bin kernel, fine kernel. Counts the route on the
+    counter `rasterize_msaa.launches` and adds the launches the C route
+    counted as it enqueued them to `rasterize_msaa.device_launches`."""
     B, F, _ = coef.shape
     S = image_size
     if coef.device.type != "cuda" or bbox.device != coef.device:
@@ -189,10 +191,10 @@ def msaa_select_cuda(coef: torch.Tensor, bbox: torch.Tensor, image_size: int,
         coef.data_ptr(), bbox.data_ptr(), B, F, S, samples, mask.data_ptr(),
         fid.data_ptr(), cov.data_ptr(), zbuf.data_ptr(), kernels.stream_ptr(coef.device),
         ctypes.byref(launched))
-    rasterize_msaa.device_launches += launched.value
+    profiling.counters["rasterize_msaa.device_launches"] += launched.value
     kernels.check(err, "raster_msaa")
     if B and S:
-        rasterize_msaa.launches += 1
+        profiling.counters["rasterize_msaa.launches"] += 1
     return fid, cov, zbuf
 
 
@@ -207,7 +209,3 @@ def rasterize_msaa(verts_screen: torch.Tensor, faces: torch.Tensor, image_size: 
         raise ValueError(f"rasterize_msaa: unsupported device {verts_screen.device}")
     coef, bbox = msaa_prep(verts_screen, faces)
     return msaa_select_cuda(coef, bbox, image_size, samples)
-
-
-rasterize_msaa.launches = 0
-rasterize_msaa.device_launches = 0

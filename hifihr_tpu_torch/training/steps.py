@@ -30,6 +30,7 @@ from hifihr_tpu_torch.config import Config, STEPPED_LAMBDAS
 from hifihr_tpu_torch.losses.stack import LossComputer
 from hifihr_tpu_torch.models.hifihr import HiFiHR, attach_j2d
 from hifihr_tpu_torch.training.train_state import TrainState
+from hifihr_tpu_torch.utils import profiling
 
 EVAL_KEYS = ("joints", "mano_verts", "j2d", "re_img", "re_sil", "re_depth",
              "pose_params", "shape_params", "trans", "scale", "hm_j2d")
@@ -99,20 +100,24 @@ def make_train_step(model: HiFiHR, loss_computer: LossComputer, dat_name: str,
     def train_step(state: TrainState, batch: dict, sched: dict):
         if state.optimizer.mesh is not mesh:
             raise ValueError("the train state and the loss computer were made for different meshes")
-        model.train()
-        batch = _root_center_targets(normalize_batch(batch), dat_name)
-        state.optimizer.zero_grad()
-        loss_dic = loss_computer(batch, _forward(model, batch, dat_name, train=True), dat_name, sched)
-        loss_dic["total"].backward()
-        loss_dic = {k: v.detach() for k, v in loss_dic.items()}
-        if mesh is not None and mesh.distributed:  # the shares summed into the global terms
-            terms = torch.stack(list(loss_dic.values()))
-            dist.all_reduce(terms, group=mesh.group)
-            loss_dic = dict(zip(loss_dic, terms.unbind()))
-        total = loss_dic["total"]
-        ok = torch.isfinite(total) & (total > 1e-10)
-        state.optimizer.step(ok)
-        loss_dic["skipped"] = 1.0 - ok.float()
+        with profiling.span("step", new_step=True):
+            model.train()
+            batch = _root_center_targets(normalize_batch(batch), dat_name)
+            with profiling.span("optimizer"):
+                state.optimizer.zero_grad()
+            loss_dic = loss_computer(batch, _forward(model, batch, dat_name, train=True), dat_name, sched)
+            with profiling.span("backward"):
+                loss_dic["total"].backward()
+            loss_dic = {k: v.detach() for k, v in loss_dic.items()}
+            if mesh is not None and mesh.distributed:  # the shares summed into the global terms
+                terms = torch.stack(list(loss_dic.values()))
+                dist.all_reduce(terms, group=mesh.group)
+                loss_dic = dict(zip(loss_dic, terms.unbind()))
+            with profiling.span("optimizer"):
+                total = loss_dic["total"]
+                ok = torch.isfinite(total) & (total > 1e-10)
+                state.optimizer.step(ok)
+                loss_dic["skipped"] = 1.0 - ok.float()
         return state, loss_dic
 
     return train_step

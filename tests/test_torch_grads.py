@@ -80,7 +80,7 @@ def test_vertex_normals_gradient():
 
 def test_fragment_interpolate_gradient_through_k2_and_k3():
     from hifihr_tpu.render.interpolate import fragment_interpolate as jfn
-    from hifihr_tpu_torch.render import gather
+    from hifihr_tpu_torch.utils.profiling import counters
     from hifihr_tpu_torch.render.interpolate import fragment_interpolate
     from hifihr_tpu_torch.render.raster import project_to_screen
     from hifihr_tpu_torch.render.raster_msaa import rasterize_msaa_plain
@@ -101,9 +101,9 @@ def test_fragment_interpolate_gradient_through_k2_and_k3():
         pix, _, z = fragment_interpolate(torch.tensor(fid), v, torch.tensor(faces), a)
         return pix, torch.where(torch.tensor(covered), z, torch.zeros_like(z))
 
-    launches = gather.gather_rows.launches, gather.scatter_rows.launches
+    launches = counters["gather_rows.launches"], counters["scatter_rows.launches"]
     _grads_match(jf, tf, [vs.numpy(), attrs])
-    assert (gather.gather_rows.launches, gather.scatter_rows.launches) == launches  # plain versions
+    assert (counters["gather_rows.launches"], counters["scatter_rows.launches"]) == launches  # plain versions
 
 
 def test_phong_shade_gradient():

@@ -34,6 +34,7 @@ from hifihr_tpu_torch.assets import load_mano_model
 from hifihr_tpu_torch.render import gather as tgather
 from hifihr_tpu_torch.render import raster_msaa as traster
 from hifihr_tpu_torch.render.renderer import morton_face_order
+from hifihr_tpu_torch.utils.profiling import counters
 from torch_port_helpers import fake_K, posed_mano_verts
 
 
@@ -147,12 +148,12 @@ def test_k1_prep_matches_tpu_prep():
 
 def test_k1_wrapper_takes_plain_version_on_cpu():
     vs, faces = _random_mesh(seed=3)
-    before = traster.rasterize_msaa.launches
+    before = counters["rasterize_msaa.launches"], counters["rasterize_msaa.device_launches"]
     out = traster.rasterize_msaa(torch.tensor(vs), torch.tensor(faces).long(), 32)
     ref = traster.rasterize_msaa_plain(torch.tensor(vs), torch.tensor(faces).long(), 32)
     for a, b in zip(out, ref):
         assert torch.equal(a, b)
-    assert traster.rasterize_msaa.launches == before  # no kernel launched
+    assert (counters["rasterize_msaa.launches"], counters["rasterize_msaa.device_launches"]) == before  # no kernel launched
 
 
 def test_k1_plain_chunking_keeps_tie_rule(monkeypatch):
@@ -191,9 +192,9 @@ def test_k2_matches_tpu_gather_and_numpy(B, F, D, P):
 def test_k2_out_of_range_rows_are_zero_and_cpu_takes_plain_version():
     table = torch.ones((1, 4, 3))
     idx = torch.tensor([[-1, 0, 3, 4, 7, -5]], dtype=torch.int32)
-    before = tgather.gather_rows.launches
+    before = counters["gather_rows.launches"]
     out = tgather.gather_rows(table, idx)
-    assert tgather.gather_rows.launches == before
+    assert counters["gather_rows.launches"] == before
     np.testing.assert_array_equal(out[0, :, 0].numpy(), [0, 1, 1, 0, 0, 0])
 
 
@@ -285,9 +286,9 @@ def test_k2_gradient_is_k3_and_matches_jax_vjp():
     table, idx = _gather_inputs(B, F, D, P, seed=6)
     ct = rng.randn(B, P, D).astype(np.float32)
     t = torch.tensor(table, requires_grad=True)
-    before = tgather.scatter_rows.launches
+    before = counters["scatter_rows.launches"]
     tgather.gather_rows(t, torch.tensor(idx)).backward(torch.tensor(ct))
-    assert tgather.scatter_rows.launches == before  # a CPU tensor takes the plain version
+    assert counters["scatter_rows.launches"] == before  # a CPU tensor takes the plain version
     _, vjp = jax.vjp(lambda x: jax_gather_rows(x, jnp.asarray(idx), True), jnp.asarray(table))
     np.testing.assert_allclose(t.grad.numpy(), np.asarray(vjp(jnp.asarray(ct))[0]), rtol=3e-5, atol=3e-3)
     np.testing.assert_array_equal(

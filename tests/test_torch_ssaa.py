@@ -40,6 +40,7 @@ from hifihr_tpu.render.renderer import PhongRenderer as JRenderer
 from hifihr_tpu_torch.assets import load_mano_model
 from hifihr_tpu_torch.render import raster as traster
 from hifihr_tpu_torch.render.renderer import morton_face_order
+from hifihr_tpu_torch.utils.profiling import counters
 from torch_port_helpers import fake_K, jax_ssaa_select_op_by_op, posed_mano_verts, randomize_variables, rel_l2
 
 
@@ -182,14 +183,14 @@ def test_k4_plain_chunking_keeps_tie_rule(monkeypatch):
 def test_k4_wrapper_takes_plain_version_on_cpu_and_raises_elsewhere():
     vs, faces = _random_mesh(32, seed=3)
     vs_t, faces_t = torch.tensor(vs), torch.tensor(faces).long()
-    before = traster.rasterize_face_id.launches, traster.rasterize_face_id.device_launches
+    before = counters["rasterize_face_id.launches"], counters["rasterize_face_id.device_launches"]
     out = traster.rasterize_face_id(vs_t, faces_t, 32)
     ref = traster.rasterize_face_id_plain(vs_t, faces_t, 32)
     for a, b in zip(out, ref):
         assert torch.equal(a, b)
     assert out[0].dtype == torch.int32 and out[1].dtype == torch.float32
     # no kernel launched
-    assert (traster.rasterize_face_id.launches, traster.rasterize_face_id.device_launches) == before
+    assert (counters["rasterize_face_id.launches"], counters["rasterize_face_id.device_launches"]) == before
     with pytest.raises(ValueError, match="unsupported device"):
         traster.rasterize_face_id(vs_t.to("meta"), faces_t.to("meta"), 32)
     with pytest.raises(ValueError, match="CUDA"):
@@ -271,7 +272,6 @@ def test_interpolation_values(interp_inputs):
 
 def test_interpolation_gradients(interp_inputs):
     """Through K2's plain version and its backward, K3's."""
-    from hifihr_tpu_torch.render import gather
 
     vs, faces, fid, attrs, face_attrs = interp_inputs
     inputs = (vs, attrs, face_attrs)
@@ -280,10 +280,10 @@ def test_interpolation_gradients(interp_inputs):
     cts = [rng.randn(*o.shape).astype(np.float32) for o in jout]
     jg = vjp(tuple(jnp.asarray(c) for c in cts))
     tin = [torch.tensor(x, requires_grad=True) for x in inputs]
-    launches = gather.gather_rows.launches, gather.scatter_rows.launches
+    launches = counters["gather_rows.launches"], counters["scatter_rows.launches"]
     tout = _interp_port(fid, faces)(*tin)
     torch.autograd.backward(list(tout), [torch.tensor(c) for c in cts])
-    assert (gather.gather_rows.launches, gather.scatter_rows.launches) == launches  # plain versions
+    assert (counters["gather_rows.launches"], counters["scatter_rows.launches"]) == launches  # plain versions
     for name, a, b in zip(("verts_screen", "attrs", "face_attrs"), tin, jg):
         assert rel_l2(a.grad.numpy(), b) < 1e-4, (name, rel_l2(a.grad.numpy(), b))
 

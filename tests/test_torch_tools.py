@@ -2,8 +2,11 @@
 utils/visualize.py's `save_obj` (per-vertex colours, `vert_uv`, `face_uv`
 with NIMBLE's 7-channel maps), `multiview_render` (the turntable, through
 the renderer at 2 x 2 MSAA subsamples) and `save_2d_errors`;
-compute_texture_metric.py; utils/profiling.py's `StepTimer` and `trace`;
-assets/convert_mano.py; and demo.py's `main` on the CPU.
+compute_texture_metric.py; assets/convert_mano.py; and demo.py's `main` on
+the CPU. Also utils/profiling.py: the spans (nesting, parents, step ids, a
+stack per thread, the `.bwd` spans a train step's backward opens, nothing
+recorded and no hook registered while they are off, the profiler's clock, a
+train step bit-equal with them on), the route counters and `trace`.
 
 The turntable: JAX's renderer takes its SSAA emulation of MSAA on the CPU,
 so JAX's face choice is made by the Pallas MSAA kernel (interpret=True, op
@@ -18,6 +21,7 @@ import json
 import os
 import pickle
 import sys
+import threading
 
 import jax
 import numpy as np
@@ -139,19 +143,207 @@ def test_compute_texture_metric(tmp_path, monkeypatch, capsys):
 
 
 def test_step_timer_and_trace(tmp_path):
-    from hifihr_tpu_torch.utils.profiling import StepTimer, trace
+    """trace() writes one Chrome trace that holds the program's spans, each
+    on its thread's row and on the operators' clock: the SSIM's conv runs
+    inside the `loss.ssim` span, its backward inside `loss.ssim.bwd`."""
+    from hifihr_tpu_torch.losses.ssim import ssim
+    from hifihr_tpu_torch.utils.profiling import trace
 
-    timer = StepTimer()
-    assert timer.images_per_sec == 0.0
+    img = torch.rand(2, 16, 16, 3, requires_grad=True)
     with trace(str(tmp_path)):
-        for _ in range(2):
-            timer.start()
-            timer.stop({"out": [torch.ones(8).sum()]}, n_images=8)
-    assert timer.images == 16 and timer.seconds > 0 and timer.images_per_sec > 0
+        ssim(img, torch.rand(2, 16, 16, 3)).backward()
     traces = [f for f in os.listdir(tmp_path) if f.endswith(".pt.trace.json")]
     assert len(traces) == 1
     with open(tmp_path / traces[0]) as f:
-        assert json.load(f)["traceEvents"]
+        events = json.load(f)["traceEvents"]
+    spans = {e["name"]: e for e in events if e.get("cat") == "span"}
+    assert set(spans) == {"loss.ssim", "loss.ssim.bwd"}
+    assert all(e["tid"] == threading.get_native_id() and e["pid"] == os.getpid() for e in spans.values())
+
+    def inside(e, span):
+        return span["ts"] <= e["ts"] and e["ts"] + e["dur"] <= span["ts"] + span["dur"]
+
+    convs = [e for e in events if e.get("ph") == "X" and e["name"] == "aten::conv2d"]
+    conv_bwd = [e for e in events if e.get("ph") == "X" and e["name"] == "aten::convolution_backward"]
+    assert len(convs) == 1 and inside(convs[0], spans["loss.ssim"])
+    assert len(conv_bwd) == 1 and inside(conv_bwd[0], spans["loss.ssim.bwd"])
+
+
+def test_spans_nest_carry_parent_and_step_and_keep_a_stack_per_thread():
+    """Spans of one step share its id; a span opened on another thread (the
+    autograd engine's, on the card) hangs under a continuation of the
+    recording thread's innermost span and closes with it."""
+    from hifihr_tpu_torch.utils import profiling
+
+    workers = []
+
+    def worker():
+        workers.append(threading.get_native_id())
+        profiling.span("loss.bwd").__enter__()  # left open: its thread never closes it
+
+    with profiling.spans() as rec:
+        for _ in range(2):
+            with profiling.span("step", new_step=True):
+                with profiling.span("encoder"):
+                    pass
+                with profiling.span("backward"):
+                    t = threading.Thread(target=worker)
+                    t.start()
+                    t.join(timeout=30)
+                    assert not t.is_alive()
+                with profiling.span("optimizer"):
+                    pass
+        assert rec == []  # handed out when the block ends
+    main = threading.get_native_id()
+
+    def parent(s):
+        return None if s.parent is None else rec[s.parent].name
+
+    got = [(s.name, parent(s), s.step, s.thread == main) for s in rec]
+    step = [("step", None, 0, True), ("encoder", "step", 0, True), ("backward", "step", 0, True),
+            ("backward", "backward", 0, False), ("loss.bwd", "backward", 0, False), ("optimizer", "step", 0, True)]
+    assert got == step + [(n, p, 1, m) for n, p, _, m in step]
+    assert [rec[i].thread for i in (3, 4, 9, 10)] == [workers[0]] * 2 + [workers[1]] * 2
+    for i in (2, 8):  # main's backward closes the worker's continuation and its open span
+        assert rec[i].end_ns == rec[i + 1].end_ns == rec[i + 2].end_ns
+    for s in rec:
+        assert s.start_ns <= s.end_ns
+        if s.parent is not None:
+            p = rec[s.parent]
+            assert p.start_ns <= s.start_ns and s.end_ns <= p.end_ns
+
+
+def test_spans_off_record_nothing_and_register_no_hook(monkeypatch):
+    """Off, a site is the shared no-op: no span object is made, so no
+    autograd hook is registered (only a span registers one) and none runs;
+    on, the hooks open and close the `.bwd` span, and the values are the
+    same bit for bit."""
+    from hifihr_tpu_torch.losses.ssim import ssim
+    from hifihr_tpu_torch.utils import profiling
+
+    made, ran = [], []
+    init, open_bwd, close_bwd = profiling._Span.__init__, profiling._Span._open_bwd, profiling._Span._close_bwd
+    monkeypatch.setattr(profiling._Span, "__init__", lambda *a: made.append(a[2]) or init(*a))
+    monkeypatch.setattr(profiling._Span, "_open_bwd", lambda sp, g: ran.append("open") or open_bwd(sp, g))
+    monkeypatch.setattr(profiling._Span, "_close_bwd", lambda sp, g: ran.append("close") or close_bwd(sp, g))
+    img, ref = torch.rand(2, 16, 16, 3, requires_grad=True), torch.rand(2, 16, 16, 3)
+    assert profiling.span("a", img) is profiling.span("b")  # one shared no-op
+    off = ssim(img, ref)
+    off.backward()
+    assert made == [] and ran == []
+    grad_off, img.grad = img.grad, None
+    with profiling.spans() as rec:
+        on = ssim(img, ref)
+        on.backward()
+    assert made == ["loss.ssim"] and ran == ["open", "close"]
+    assert [s.name for s in rec] == ["loss.ssim", "loss.ssim.bwd"] and rec[0].end_ns <= rec[1].start_ns
+    assert torch.equal(on, off) and torch.equal(img.grad, grad_off)
+
+
+def test_span_holds_its_ops_profiler_event_on_one_clock():
+    from torch.profiler import ProfilerActivity, profile
+
+    from hifihr_tpu_torch.utils import profiling
+
+    x = torch.randn(256, 256)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with profiling.spans() as rec:
+            with profiling.span("matmul"):
+                x @ x
+    (s,) = rec
+    ev = [e for e in prof.profiler.kineto_results.events() if e.name() == "aten::mm"]
+    assert len(ev) == 1
+    assert s.start_ns <= ev[0].start_ns() and ev[0].start_ns() + ev[0].duration_ns() <= s.end_ns
+
+
+def test_train_step_with_spans_on_is_bit_equal_and_splits_the_backward():
+    """Two train steps with spans on: the same losses and parameters bit for
+    bit as with them off, and each layer's backward in its `.bwd` span,
+    in reverse forward order under `backward`."""
+    import contextlib
+    import warnings
+
+    from hifihr_tpu_torch.config import Config
+    from hifihr_tpu_torch.losses.stack import LossComputer
+    from hifihr_tpu_torch.models.hifihr import build_model
+    from hifihr_tpu_torch.training.steps import make_sched, make_train_step
+    from hifihr_tpu_torch.training.train_state import create_train_state
+    from hifihr_tpu_torch.utils import profiling
+    from torch_port_helpers import fake_K
+
+    b, size = 2, 32
+    cfg = Config(pretrain="res18", hand_model="mano", render=True, light_estimation=False, image_size=size,
+                 compute_dtype="float32", losses=("joint_3d", "joint_2d", "vert_3d", "mshape", "mpose", "sil",
+                                                  "perceptual"))
+    rng = np.random.RandomState(0)
+    batch = {"imgs": torch.tensor(rng.rand(b, size, size, 3).astype(np.float32)),
+             "Ks": torch.tensor(fake_K(b, size)), "root_xyz": torch.tensor([[[0.0, 0.0, 0.5]]]).repeat(b, 1, 1),
+             "joints": torch.tensor((rng.randn(b, 21, 3) * 0.03 + [0, 0, 0.5]).astype(np.float32)),
+             "j2d_gt": torch.tensor((rng.rand(b, 21, 2) * size).astype(np.float32)),
+             "verts": torch.tensor((rng.randn(b, 778, 3) * 0.03 + [0, 0, 0.5]).astype(np.float32)),
+             "segms_gt": torch.tensor((rng.rand(b, size, size) > 0.6).astype(np.float32)),
+             "texture_con": torch.ones(b)}
+
+    def run(spans_on):
+        model = build_model(cfg, device="cpu", seed=0)
+        state = create_train_state(model, cfg)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # the VGG19's DEGRADED warning
+            step = make_train_step(model, LossComputer(cfg), "FreiHand", cfg)
+        sched = make_sched(cfg, 0, device="cpu")
+        losses = []
+        with profiling.spans() if spans_on else contextlib.nullcontext([]) as rec:
+            for _ in range(2):
+                losses.append(step(state, batch, sched)[1])
+        return losses, state.optimizer.flat, rec
+
+    off, flat_off, _ = run(False)
+    on, flat_on, rec = run(True)
+    assert torch.equal(flat_on, flat_off)
+    for a, c in zip(off, on):
+        assert a.keys() == c.keys() and all(torch.equal(a[k], c[k]) for k in a)
+
+    def path(s):
+        names = []
+        while s.parent is not None:
+            s = rec[s.parent]
+            names.append(s.name)
+        return "/".join(reversed(names))
+
+    first = [(s.name, path(s)) for s in rec if s.step == 0]
+    assert first == [
+        ("step", ""), ("optimizer", "step"), ("encoder", "step"), ("hand", "step"), ("renderer", "step"),
+        ("loss", "step"), ("loss.ssim", "step/loss"), ("loss.ssim", "step/loss"), ("loss.perceptual", "step/loss"),
+        ("backward", "step"), ("loss.bwd", "step/backward"), ("loss.perceptual.bwd", "step/backward/loss.bwd"),
+        ("loss.ssim.bwd", "step/backward/loss.bwd"), ("loss.ssim.bwd", "step/backward/loss.bwd"),
+        ("renderer.bwd", "step/backward"), ("hand.bwd", "step/backward"), ("encoder.bwd", "step/backward"),
+        ("optimizer", "step")]
+    assert [(s.name, path(s)) for s in rec if s.step == 1] == first
+    bwd = [s for s in rec if s.step == 0 and s.name.endswith(".bwd") and path(s) == "step/backward"]
+    assert all(a.end_ns <= c.start_ns for a, c in zip(bwd, bwd[1:]))  # one after another
+
+
+def test_route_counters_live_in_the_registry():
+    """The routes' launch counts are profiling.counters' entries (the card
+    counts them: chip_smoke.py's launches_per_route and
+    check_route_launches); the CPU's plain versions count nothing."""
+    from hifihr_tpu_torch.render import gather, raster, raster_msaa
+    from hifihr_tpu_torch.utils.profiling import counters
+
+    assert set(counters) == {"rasterize_msaa.launches", "rasterize_msaa.device_launches",
+                             "rasterize_face_id.launches", "rasterize_face_id.device_launches",
+                             "gather_rows.launches", "scatter_rows.launches"}
+    for fn in (raster_msaa.rasterize_msaa, raster.rasterize_face_id, gather.gather_rows, gather.scatter_rows):
+        assert not hasattr(fn, "launches") and not hasattr(fn, "device_launches")
+    before = dict(counters)
+    gen = torch.Generator().manual_seed(0)
+    screen = torch.rand(1, 30, 3, generator=gen) * torch.tensor([32.0, 32.0, 0.2]) + torch.tensor([0.0, 0.0, 0.4])
+    faces = torch.randint(0, 30, (20, 3), generator=gen)
+    raster_msaa.rasterize_msaa(screen, faces, 32)
+    raster.rasterize_face_id(screen, faces, 32)
+    table = torch.rand(1, 4, 3, requires_grad=True)
+    gather.gather_rows(table, torch.tensor([[0, 3, -1]], dtype=torch.int32)).sum().backward()
+    assert counters == before
 
 
 def test_convert_mano(tmp_path, monkeypatch):
