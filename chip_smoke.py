@@ -274,6 +274,11 @@ over a few eval steps and a few train steps of every cell. Phases:
      silhouette, every frame's K1 route at 2 x 2 subsamples
      (msaa_fine_kernel<2>) exactly equal to msaa_select_plain(...,
      samples=2) and timed against its bound, every K2 launch bit-equal
+ 34. (right after phase 8) K5, SSIM forward and backward, against its
+     plain version (`phase_ssim`) at the flagship's and the paper's call
+     shapes and a ragged one; a `{"K5": [...]}` line with its times,
+     bounds, the plain version's and the library route's times. Every train
+     step holds `ssim.launches` at three per SSIM term
 
 The `{"kernels": [...]}` line also holds every kernel's launches per step
 of the new cells (`launches_mano_new_*`, `launches_nimble_uv_*`,
@@ -1109,6 +1114,134 @@ PATH_KERNELS = {"msaa": ("K1 msaa_raster", "K2 gather_rows", "K3 scatter_rows"),
                 "ssaa": ("K4 face_raster", "K2 gather_rows", "K3 scatter_rows")}
 
 
+# K5 at the flagship's two calls a step, the paper's one, and a ragged shape
+# (partial tiles on both axes, an image narrower than the window's reach)
+SSIM_SHAPES = ((B, S, S, 3), (48, S, S, 3), (5, 37, 101, 3))
+# K5 against its plain version, both fp32 (stated before the first run):
+# where a region is flat, sigma^2 = E[x^2] - mu^2 cancels, so the last bits
+# of the moments (fused multiply-adds in K5, separate roundings in the
+# plain version) move S and the partials by up to ~3e-5 relative there; the
+# mean over millions of pixels averages that out to well under 1e-6
+SSIM_VALUE_TOL = 1e-6  # absolute, on the mean SSIM
+SSIM_GRAD_TOL = 1e-4  # relative L2 of dx and dy
+SSIM_GRAD_MAX_TOL = 1e-3  # largest entry's error over the largest entry
+
+
+def ssim_pair(shape: tuple, seed: int) -> tuple:
+    """A render-like pair on the card: a smooth colour field (bilinear from
+    an eighth of the size) over a seeded disk per image and zeros elsewhere
+    (a masked render), and the field with noise over the disk moved 3 px,
+    clipped to [0, 1] (its masked target)."""
+    b, h, w, c = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    coarse = torch.rand(b, c, max(h // 8, 2), max(w // 8, 2), generator=gen, device="cuda")
+    field = torch.nn.functional.interpolate(coarse, size=(h, w), mode="bilinear", align_corners=False)
+    field = field.permute(0, 2, 3, 1)
+    yy = torch.arange(h, device="cuda", dtype=torch.float32).view(1, h, 1)
+    xx = torch.arange(w, device="cuda", dtype=torch.float32).view(1, 1, w)
+    cy, cx, r = (torch.rand(3, b, 1, 1, generator=gen, device="cuda")
+                 * torch.tensor([h, w, 0.25 * min(h, w)], device="cuda").view(3, 1, 1, 1))
+    r = r + 0.15 * min(h, w)
+
+    def disk(dy: float, dx: float) -> torch.Tensor:
+        return (((yy - cy - dy) ** 2 + (xx - cx - dx) ** 2) < r**2).float()[..., None]
+
+    noise = 0.05 * torch.randn(shape, generator=gen, device="cuda")
+    return (field * disk(0, 0)).contiguous(), ((field + noise).clamp(0, 1) * disk(3, 3)).contiguous()
+
+
+def ssim_gaps(value, dx, ref_value, ref_dx) -> dict:
+    return {"value": abs(value - ref_value).item(), "dx_rel_l2": ((dx - ref_dx).norm() / ref_dx.norm()).item(),
+            "dx_max": ((dx - ref_dx).abs().max() / ref_dx.abs().max()).item()}
+
+
+def phase_ssim() -> None:
+    """K5 (SSIM forward and backward) against its plain version on the card
+    (`ssim_partials_plain`, fp32) at SSIM_SHAPES: value and dx (and dy)
+    within the SSIM_*_TOL; value and dx bit-equal over two calls; the
+    value without the partial maps (no_grad) equal to the value with them;
+    ssim.launches counting each launch (two a forward, one a backward); a
+    raise on bf16 and on non-contiguous images. Both fp32 versions' gaps to
+    the plain version in float64. Times by CUDA events, each launch's
+    device time, the plain version's and the library route's (the grouped
+    F.conv2d of ssim_plain with autograd) beside the bound."""
+    from hifihr_tpu_torch.losses.ssim import ssim, ssim_partials_plain, ssim_plain
+    from hifihr_tpu_torch.utils.profiling import counters
+
+    t0 = time.perf_counter()
+    readings = []
+    for i, shape in enumerate(SSIM_SHAPES):
+        what = f"K5 at {shape}"
+        x, y = ssim_pair(shape, seed=i)
+        xg = x.clone().requires_grad_()
+
+        def fwd_bwd(xg=xg, y=y):
+            xg.grad = None
+            out = ssim(xg, y)
+            out.backward()
+            return out.detach(), xg.grad
+
+        before = counters["ssim.launches"]
+        v1, dx1 = fwd_bwd()
+        check(counters["ssim.launches"] - before == 3, f"{what}: three launches for a forward and backward")
+        v2, dx2 = fwd_bwd()
+        check(torch.equal(v1, v2) and torch.equal(dx1, dx2), f"{what}: value and dx bit-equal over two calls")
+        before = counters["ssim.launches"]
+        with torch.no_grad():
+            v0 = ssim(x, y)
+        check(counters["ssim.launches"] - before == 2, f"{what}: two launches for a forward without gradient")
+        check(torch.equal(v0, v1), f"{what}: the value without the partial maps is the value with them")
+        pv, pdx, _ = ssim_partials_plain(x, y, with_dy=False)
+        gaps = ssim_gaps(v1, dx1, pv, pdx)
+        tv, tdx, tdy = ssim_partials_plain(x.double(), y.double(), with_dy=True)
+        truth = {"kernel": ssim_gaps(v1.double(), dx1.double(), tv, tdx),
+                 "plain": ssim_gaps(pv.double(), pdx.double(), tv, tdx)}
+        xg2, yg = x.clone().requires_grad_(), y.clone().requires_grad_()
+        ssim(xg2, yg).backward()
+        _, _, pdy = ssim_partials_plain(x, y, with_dy=True)
+        gaps["dy_rel_l2"] = ((yg.grad - pdy).norm() / pdy.norm()).item()
+        gaps["dy_max"] = ((yg.grad - pdy).abs().max() / pdy.abs().max()).item()
+        truth["kernel"]["dy_rel_l2"] = ((yg.grad.double() - tdy).norm() / tdy.norm()).item()
+        truth["plain"]["dy_rel_l2"] = ((pdy.double() - tdy).norm() / tdy.norm()).item()
+        print(f"{what}: value {v1.item()}, gaps to the fp32 plain version {json.dumps(gaps)}, "
+              f"to the float64 plain version {json.dumps(truth)}")
+        check(gaps["value"] <= SSIM_VALUE_TOL, f"{what}: value within {SSIM_VALUE_TOL} of the plain version")
+        check(max(gaps["dx_rel_l2"], gaps["dy_rel_l2"]) <= SSIM_GRAD_TOL
+              and max(gaps["dx_max"], gaps["dy_max"]) <= SSIM_GRAD_MAX_TOL,
+              f"{what}: dx and dy within {SSIM_GRAD_TOL} relative L2 and {SSIM_GRAD_MAX_TOL} of the largest entry")
+        check(torch.equal(xg2.grad, dx1), f"{what}: dx the same when dy is computed beside it")
+        del xg2, yg, pdy, tdx, tdy, pdx
+
+        plane = x.numel()
+        fwd_bound = bound(5 * plane * 4, (2 * 5 * 11 * 2 + 3) * plane)  # read x, y; write a, b, c
+        bwd_bound = bound(6 * plane * 4, (2 * 3 * 11 * 2 + 6) * plane)  # read x, y, a, b, c; write dx
+        with torch.no_grad():
+            value_ms = time_ms(lambda: ssim(x, y), reps=20)
+        reading = {"shape": list(shape), "gaps": gaps, "float64_gaps": truth,
+                   "ms": {"forward": time_ms(lambda: ssim(xg, y), reps=20), "forward_backward": time_ms(fwd_bwd, 20),
+                          "forward_no_grad": value_ms},
+                   "device_ms": {k: v[0] for k, v in device_ms(fwd_bwd).items()},
+                   "bound_ms": {"forward": fwd_bound, "backward": bwd_bound,
+                                "forward_no_grad": bound(2 * plane * 4, (2 * 5 * 11 * 2 + 3) * plane)},
+                   "plain_ms": time_ms(lambda: ssim_partials_plain(x, y, with_dy=False), reps=3),
+                   "library_ms": time_ms(lambda: ssim_plain(xg, y).backward(), reps=5)}
+        print(f"{what}: " + json.dumps(reading))
+        readings.append(reading)
+        del x, y, xg, v0, v1, v2, dx1, dx2
+
+    x = torch.rand(2, 16, 16, 3, device="cuda")
+    for bad, exc, why in ((x.bfloat16(), TypeError, "bf16"), (torch.cat([x, x], -1)[..., :3], ValueError,
+                                                             "non-contiguous")):
+        try:
+            ssim(bad, bad)
+        except exc as e:
+            print(f"K5 raises on {why} images: {e}")
+        else:
+            check(False, f"K5 raises on {why} images")
+    print(json.dumps({"K5": readings}))
+    print(f"phase K5 (SSIM): {time.perf_counter() - t0:.1f} s")
+
+
 def step_config(aa_mode: str = "msaa", hand_model: str = "mano", pretrain: str = "res50"):
     """The flagship steps' configuration (bench.py:52-63): full width and
     depth, the bench losses, Adam at lr 1e-3; `pretrain="effb3"` is bench's
@@ -1349,6 +1482,7 @@ def phase_train_step(batch: dict, profile: bool, cfg, label: str, fired: tuple, 
     from hifihr_tpu_torch.models.hifihr import build_model
     from hifihr_tpu_torch.training.steps import make_sched, make_train_step
     from hifihr_tpu_torch.training.train_state import create_train_state
+    from hifihr_tpu_torch.utils.profiling import counters
 
     t0 = time.perf_counter()
     nimble = cfg.hand_model == "nimble"
@@ -1381,6 +1515,10 @@ def phase_train_step(batch: dict, profile: bool, cfg, label: str, fired: tuple, 
     path = path or PATH_KERNELS[cfg.aa_mode]
     check(all(launches[k] > 0 for k in path) and sum(launches[k] for k in path) == sum(launches.values()),
           f"{', '.join(path)} and no other kernel ran on the {label} train path: {launches}")
+    ssim_terms = [k for k in ("ssim_tex_self", "ssim_tex") if k in d]
+    check(counters["ssim.launches"] == 3 * len(ssim_terms),
+          f"K5's three launches for each SSIM term of the {label} train step ({ssim_terms}): "
+          f"{counters['ssim.launches']}")
     # K1, K3 and K4 on the step's own inputs, and K2 bit-equal there: the
     # first step's here, freed before the timed steps, and a later step's at
     # the end
@@ -2984,6 +3122,7 @@ def main() -> int:
     t0 = time.perf_counter()
     table = phase_kernels(batch) + [phase_k4(batch)]
     print(f"phase kernels K1-K4: {time.perf_counter() - t0:.1f} s")
+    phase_ssim()
     small = slice_batch()
     launches, hands = {}, {}
 

@@ -40,6 +40,10 @@ SIGNATURES = {
     "scatter_rows": {"hifihr_scatter_rows": ([_P, _P, _I, _I, _I, _I, _P, _P], _I)},
     "raster_face": {"hifihr_face_route": ([_P, _I, _I, _I, _P, _P, _P, _P, _P], _I),
                     "hifihr_face_mask_words": ([_I, _I, _I], ctypes.c_longlong)},
+    "ssim": {"hifihr_ssim_blocks": ([_I, _I, _I, _I], _I),
+             "hifihr_ssim_forward": ([_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P], _I),
+             "hifihr_ssim_sum": ([_P, _I, ctypes.c_longlong, _P, _P], _I),
+             "hifihr_ssim_backward": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P], _I)},
 }
 
 _LOADED: dict[str, ctypes.CDLL] = {}

@@ -180,7 +180,9 @@ class LossComputer:
             b = re_img.shape[0]
             mean_diff = (re_img.reshape(b, -1).mean(1) - mask_rgbs.reshape(b, -1).mean(1)).abs()
             d["mrgb_self"] = cfg.lambda_mrgb * ((mean_diff * con**2).sum() / den["mrgb_self"])
-            d["ssim_tex_self"] = cfg.lambda_ssim_tex * (1.0 - ssim(re_img, mask_rgbs))
+            # re_img is the render's first three channels, a strided view: K5
+            # takes NHWC contiguous images
+            d["ssim_tex_self"] = cfg.lambda_ssim_tex * (1.0 - ssim(re_img.contiguous(), mask_rgbs))
         # photometric, fully supervised against the ground-truth mask
         if rendered and "segms_gt" in examples:
             gt_masked = examples["segms_gt"][..., None] * examples["imgs"]

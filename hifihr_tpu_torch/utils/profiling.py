@@ -46,6 +46,7 @@ integer add a call):
   rasterize_face_id.device_launches   K4 launches, as the C route counts them
   gather_rows.launches                K2 launches
   scatter_rows.launches               K3 launches (gather_rows' backward too)
+  ssim.launches                       K5 launches (losses/ssim.py: two a forward, one a backward)
 
 Trace. `trace(log_dir)` runs torch.profiler (CPU activity, and CUDA
 activity where there is a card) with the spans on over the block and writes
@@ -68,7 +69,7 @@ import torch
 
 counters = dict.fromkeys(("rasterize_msaa.launches", "rasterize_msaa.device_launches",
                           "rasterize_face_id.launches", "rasterize_face_id.device_launches",
-                          "gather_rows.launches", "scatter_rows.launches"), 0)
+                          "gather_rows.launches", "scatter_rows.launches", "ssim.launches"), 0)
 
 
 @dataclass(frozen=True)

@@ -27,7 +27,7 @@ from hifihr_tpu.training.steps import make_sched as jmake_sched
 from hifihr_tpu_torch.assets import load_mano_model
 from hifihr_tpu_torch.config import PORTED_LOSSES, Config
 from hifihr_tpu_torch.losses import basic
-from hifihr_tpu_torch.losses.ssim import ssim
+from hifihr_tpu_torch.losses.ssim import ssim, ssim_partials_plain
 from hifihr_tpu_torch.losses.stack import LossComputer
 from hifihr_tpu_torch.render.mesh import uniform_laplacian
 from hifihr_tpu_torch.training.steps import make_sched
@@ -121,6 +121,32 @@ def test_ssim():
     x = rng.rand(2, 32, 32, 3).astype(np.float32)
     y = np.clip(x + rng.randn(2, 32, 32, 3).astype(np.float32) * 0.1, 0, 1)
     _assert_both(_both(jssim, ssim, x, y, grad_args=(0, 1)))
+
+
+@pytest.mark.parametrize("shape", [(2, 32, 32, 3), (1, 13, 29, 3)])
+@pytest.mark.parametrize("with_dy", [True, False])
+def test_ssim_partials_plain_matches_autograd(shape, with_dy):
+    """K5's arithmetic (separable moments, partial maps, analytic dx and
+    dy) against autograd through the plain `ssim`, in float64 so the
+    formulas are held and not the rounding: the separable window in fp32
+    (K5's) and the dense one (outer product rounded to fp32) differ by
+    ~1e-7 relative; a wrong formula or border is off by far more. The
+    ragged shape holds the borders (a 13 x 29 image under an 11-tap
+    window). Images with flat zero borders, as masked renders have."""
+    rng = np.random.RandomState(11)
+    x = rng.rand(*shape)
+    x[:, :3] = 0.0
+    y = np.clip(x + rng.randn(*shape) * 0.1, 0, 1)
+    tx, ty = _t(x, True), _t(y, with_dy)
+    val = ssim(tx, ty)
+    val.backward()
+    got = ssim_partials_plain(_t(x), _t(y), with_dy=with_dy)
+    np.testing.assert_allclose(got[0].item(), val.item(), rtol=1e-6)
+    for g, ref in ((got[1], tx.grad), (got[2], ty.grad if with_dy else None)):
+        if ref is None:
+            assert g is None
+        else:
+            np.testing.assert_allclose(g.numpy(), ref.numpy(), rtol=1e-5, atol=1e-6 * ref.abs().max().item())
 
 
 def _stack_inputs(B=2, S=32, seed=8):

@@ -327,12 +327,13 @@ def test_route_counters_live_in_the_registry():
     """The routes' launch counts are profiling.counters' entries (the card
     counts them: chip_smoke.py's launches_per_route and
     check_route_launches); the CPU's plain versions count nothing."""
+    from hifihr_tpu_torch.losses.ssim import ssim
     from hifihr_tpu_torch.render import gather, raster, raster_msaa
     from hifihr_tpu_torch.utils.profiling import counters
 
     assert set(counters) == {"rasterize_msaa.launches", "rasterize_msaa.device_launches",
                              "rasterize_face_id.launches", "rasterize_face_id.device_launches",
-                             "gather_rows.launches", "scatter_rows.launches"}
+                             "gather_rows.launches", "scatter_rows.launches", "ssim.launches"}
     for fn in (raster_msaa.rasterize_msaa, raster.rasterize_face_id, gather.gather_rows, gather.scatter_rows):
         assert not hasattr(fn, "launches") and not hasattr(fn, "device_launches")
     before = dict(counters)
@@ -343,6 +344,8 @@ def test_route_counters_live_in_the_registry():
     raster.rasterize_face_id(screen, faces, 32)
     table = torch.rand(1, 4, 3, requires_grad=True)
     gather.gather_rows(table, torch.tensor([[0, 3, -1]], dtype=torch.int32)).sum().backward()
+    img = torch.rand(1, 12, 12, 3, generator=gen, requires_grad=True)
+    ssim(img, torch.rand(1, 12, 12, 3, generator=gen)).backward()
     assert counters == before
 
 
