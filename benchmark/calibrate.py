@@ -59,8 +59,8 @@ def control_numbers(cell: spec.Cell, seed: int, device, precision: str = "contro
     fields = spec.port_config_dict(cell.config)
     dataset = cell.config.get("dataset", "FreiHand")
     pool = make_pool(cell, seed, device)
-    ref = check.reference_train(fields, dataset, seed, device, pool)
-    ctl = check.reference_train(fields, dataset, seed, device, pool, precision=precision)
+    ref = check.reference_train(fields, dataset, seed, device, pool, reference=cell.reference)
+    ctl = check.reference_train(fields, dataset, seed, device, pool, precision=precision, reference=cell.reference)
     return check.train_numbers(dict(ctl, mu1=ctl["g1"] * (1.0 - check.B1)), ref)
 
 

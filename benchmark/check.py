@@ -1,5 +1,6 @@
 """What decides `correct`: the outputs of the timed path against the plain
-reference (benchmark/reference/), computed in the precision the
+reference (benchmark/reference/, or the package the configuration names
+under "reference"), computed in the precision the
 configuration states (the encoder under bf16 autocast where
 `compute_dtype` says bfloat16, everything else in fp32 with TF32 off),
 made from the same seeded weights and the same inputs, once the window has
@@ -37,6 +38,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from benchmark import spec
 from benchmark.program import VGG_SEED_SALT
 from benchmark.weights import load_seeded_weights
 
@@ -137,27 +139,23 @@ def encoder_flops(model: nn.Module, imgs: torch.Tensor) -> int:
 
 
 def reference_train(config_fields: dict, dataset: str, seed: int, device, pool: list,
-                    precision: str = "stated", flops=None) -> dict:
+                    precision: str = "stated", flops=None, reference: str = spec.DEFAULT_REFERENCE) -> dict:
     """The reference's first three steps from the seed's weights on pool
     batches 0..2: totals, the first gradient, the flat parameters before
-    and after. `flops` (a FlopCounterMode) counts the first step."""
-    from benchmark.reference.config import Config
-    from benchmark.reference.losses.stack import LossComputer
-    from benchmark.reference.models.hifihr import build_model
-    from benchmark.reference.training.steps import make_sched, make_train_step
-    from benchmark.reference.training.train_state import create_train_state
-
-    cfg = Config.from_dict(reference_fields(config_fields, precision))
-    model = build_model(cfg, device)
+    and after. `flops` (a FlopCounterMode) counts the first step.
+    `reference` names the configuration's reference package (spec.py)."""
+    ref = spec.reference_api(reference)
+    cfg = ref.Config.from_dict(reference_fields(config_fields, precision))
+    model = ref.build_model(cfg, device)
     load_seeded_weights(model, seed, device)
-    lc = LossComputer(cfg)
+    lc = ref.LossComputer(cfg)
     if lc.vgg is not None:
         lc.vgg.to(device)
         load_seeded_weights(lc.vgg, seed + VGG_SEED_SALT, device)
-    step = make_train_step(model, lc, dataset, cfg)
-    sched = make_sched(cfg, 0, device)
+    step = ref.make_train_step(model, lc, dataset, cfg)
+    sched = ref.make_sched(cfg, 0, device)
     with numerics(model, precision):
-        state = create_train_state(model, cfg)
+        state = ref.create_train_state(model, cfg)
         opt = state.optimizer
         flat0 = opt.flat.clone()
         totals, g1, terms1 = [], None, None

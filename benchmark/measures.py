@@ -1,11 +1,12 @@
 """The arithmetic the metric readers share, over one run's record (`run`,
 built by run.py): the rate over the whole window, the device's idle
-share and operations per step from the trace, MFU and the kernels'
-roofline shares. Each returns None where the run has nothing to read."""
+share and operations per step from the trace, MFU, the kernels' roofline
+shares and the layers' device time from the spans. Each returns None where
+the run has nothing to read."""
 
 from __future__ import annotations
 
-from benchmark import roofline, tracing
+from benchmark import roofline, spec, tracing
 
 
 def rate(run: dict) -> float:
@@ -44,11 +45,22 @@ def mfu(run: dict) -> float | None:
 
 def kernel_roofline(run: dict, kernel: str) -> float | None:
     """100 x one call's least time (from what the call had to do) over its
-    device time in the trace."""
+    device time in the trace; kernels/<kernel>.py says what a call is."""
     if run.get("trace") is None or not run.get("calls"):
         return None
-    t = tracing.kernel_seconds_per_call(run["trace"], kernel)
-    b = tracing.kernel_bound_seconds(run["calls"], kernel)
+    here = run.get("here", spec.HERE)
+    t = tracing.kernel_seconds_per_call(run["trace"], kernel, here)
+    b = tracing.kernel_bound_seconds(run["calls"], kernel, here)
     if not t or b is None:
         return None
     return 100.0 * b / t
+
+
+def span_device_ms(run: dict, names: tuple) -> float | None:
+    """Device ms a step of the port's spans named `names` with their
+    descendants (a layer: its forward and `.bwd` spans), overlapping
+    operations counted once; None where the run recorded none of them."""
+    got = tracing.attribution(run)
+    if got is None:
+        return None
+    return tracing.layer_ms_per_step(run["spans"], got[2], names)

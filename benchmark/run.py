@@ -7,10 +7,12 @@ Set-up (timed as setup_s, from process start): the cell's inputs from the
 seed on the card, the port's step built through its entry points with the
 benchmark's seeded weights, and every shape the window uses run once (the
 program's first train steps, which the check compares). Then the window: the
-traffic's loop for `--seconds`, traced by torch.profiler with `--trace 1`.
-Then the check: the program's state freed, the plain reference from the
-same seed and inputs, each compared number beside its limit. `--trace 0`
-reports the cell's end-to-end metrics, `--trace 1` its per-layer ones.
+traffic's loop for `--seconds`; with `--trace 1` traced by torch.profiler
+with the port's layer spans on and its kernel calls recorded
+(tracing.py). Then the check: the program's state freed, the plain
+reference of the configuration (its "reference" package) from the same
+seed and inputs, each compared number beside its limit. `--trace 0` reports
+the cell's end-to-end metrics, `--trace 1` its per-layer ones.
 
 Exits 2 without a result where the card or the cell's card count is
 missing, and 3 where a module of JAX or of the JAX package was loaded.
@@ -27,6 +29,7 @@ import contextlib  # noqa: E402
 import gc  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
+import resource  # noqa: E402
 import sys  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -81,17 +84,16 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool, device,
     sync()
     setup_s = time.perf_counter() - t_start
 
-    calls = summary = None
+    calls = summary = spans = counters = None
     gc_pauses = []
     host = host_clock()
     gc.callbacks.append(lambda phase, info: gc_pauses.append(time.perf_counter()))
     if trace:
         from benchmark import tracing
 
-        # K1-K3's calls are kept only where a reader of the cell counts their work
-        keep = any("roofline" in m["name"] for m in cell.per_layer)
-        with tracing.kernel_calls(keep) as calls:
-            result, summary = tracing.profile_window(lambda: run_window(program, pool, seconds))
+        # the calls of the kernels whose roofline the cell reports, and no others
+        with tracing.kernel_calls(tracing.roofline_kernels(cell.per_layer), cell.here) as calls:
+            result, summary, spans, counters = tracing.profile_window(lambda: run_window(program, pool, seconds))
     else:
         result = run_window(program, pool, seconds)
     gc.callbacks.pop()
@@ -105,11 +107,12 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool, device,
         torch.cuda.empty_cache()
 
     flops = check.flop_counter() if trace else None
-    ref = check.reference_train(fields, dataset, seed, device, pool, flops=flops)
+    ref = check.reference_train(fields, dataset, seed, device, pool, flops=flops, reference=cell.reference)
     numbers = check.train_numbers(first, ref)
     correct, checks = check.judge(numbers, cell.limits)
 
-    run = dict(result, setup_s=setup_s, batch=batch, trace=summary, calls=calls)
+    run = dict(result, setup_s=setup_s, batch=batch, trace=summary, calls=calls, spans=spans, counters=counters,
+               here=cell.here)
     if flops is not None:
         # the encoder's FLOPs run in bf16 where the configuration says so
         enc = ref["encoder_flops"] if fields.get("compute_dtype", "bfloat16") == "bfloat16" else 0
@@ -117,7 +120,7 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool, device,
         run["flops"] = {"bf16_per_image": enc / batch, "fp32_per_image": (total - enc) / batch}
     metrics = {}
     for m in (cell.per_layer if trace else cell.end_to_end):
-        value = spec.metric_reader(m["name"])(run)
+        value = spec.metric_reader(m["name"], cell.here)(run)
         if value is not None:
             metrics[m["name"]] = {"value": float(value), "unit": m["unit"]}
     dev = {"platform": "gpu" if cuda else "cpu",
@@ -131,19 +134,43 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool, device,
         busy, _, _ = tracing.busy_and_gaps(summary)
         dev["busy_s"] = busy
         dev["window_s"] = result["window_s"]
-        out["breakdown"] = tracing.breakdown(summary)
+        got = tracing.attribution(run)
+        out["breakdown"] = tracing.breakdown(summary, spans, got[0] if got else None)
     out["checks"] = checks
     # the host's side of the window, for the record on standard error
     gc_s = sum(b - a for a, b in zip(gc_pauses[0::2], gc_pauses[1::2]))
     out["_numbers"] = dict(numbers, _host=dict(host, gc_s=gc_s, gc_n=len(gc_pauses) // 2,
                                                loadavg=os.getloadavg()[0]))
+    if trace:
+        out["_numbers"]["_trace"] = trace_record(run)
     return out
 
 
+def trace_record(run: dict) -> dict:
+    """The traced window's reduction, for the record on standard error:
+    busy ms a step, and with spans tracing.span_summary's (each layer's and
+    each span name's device ms, the share of busy they cover, the
+    operations no span holds); the port's counters' change."""
+    from benchmark import tracing
+
+    busy, _, _ = tracing.busy_and_gaps(run["trace"])
+    rec = {"busy_ms_per_step": busy * 1e3 / max(run["steps"], 1), "reduce_s": run["trace"]["reduce_s"],
+           "spans": len(run["spans"]), "counters": run["counters"]}
+    got = tracing.attribution(run)
+    if got is not None:
+        rec |= tracing.span_summary(run["trace"], run["spans"], *got, run["here"])
+    return rec
+
+
 def host_clock() -> dict:
-    """The process's CPU seconds and the wall clock, to tell a window the
-    host starved from one it ran."""
-    return {"cpu_s": time.process_time(), "wall_s": time.perf_counter()}
+    """The process's CPU seconds and involuntary context switches, the
+    machine's steal seconds (what its hypervisor gave to others, all cores)
+    and the wall clock, to tell a window the host starved from one it ran."""
+    steal = 0.0
+    with contextlib.suppress(OSError, ValueError, IndexError), open("/proc/stat") as f:
+        steal = int(f.readline().split()[8]) / os.sysconf("SC_CLK_TCK")
+    return {"cpu_s": time.process_time(), "wall_s": time.perf_counter(), "steal_s": steal,
+            "nivcsw": resource.getrusage(resource.RUSAGE_SELF).ru_nivcsw}
 
 
 def main(argv=None) -> int:

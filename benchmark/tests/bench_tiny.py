@@ -13,8 +13,8 @@ TINY = {"image_size": 32, "light_estimation": False, "compute_dtype": "float32",
         "val_batch": 2}
 
 
-def tiny_cell(name: str, **over) -> spec.Cell:
-    cell = copy.deepcopy(spec.find_cell(name))
+def tiny_cell(name: str, here: str = spec.HERE, **over) -> spec.Cell:
+    cell = copy.deepcopy(spec.find_cell(name, here=here))
     cell.config.update(TINY, **over)
     if cell.config.get("pretrain") == "res50":
         cell.config["pretrain"] = "res18"

@@ -1,7 +1,9 @@
-"""layer_trace.py's attribution on made-up traces: device operations to the
-innermost span open on their launching thread, matched by correlation id;
-idle gaps to the span of the operation that ended them; a layer's device ms
-a step; nothing read where the run has no spans."""
+"""The spans' attribution (tracing.py) on made-up traces: device operations
+to the innermost span open on their launching thread, matched by
+correlation id; idle gaps to the span of the operation that ended them; a
+layer's device ms a step, as layer_trace.py reports it and as each layer
+metric of the traced run reads it; nothing read where the run has no
+spans."""
 
 from __future__ import annotations
 
@@ -10,7 +12,7 @@ from collections import namedtuple
 import numpy as np
 import pytest
 
-from benchmark import layer_trace, tracing
+from benchmark import layer_trace, spec, tracing
 
 Span = namedtuple("Span", "name start_ns end_ns parent thread ident step")
 # pthread ids; CUPTI records a runtime call's thread as the low 32 bits, signed
@@ -61,7 +63,7 @@ def step_trace():
 
 def test_ops_go_to_the_innermost_span_on_their_launching_thread():
     t = step_trace()
-    owner = layer_trace.owners(t, SPANS)
+    owner = tracing.owners(t, SPANS)
     got = {t["dev_name"][i]: (SPANS[o].name if o >= 0 else None) for i, o in enumerate(owner)}
     # dgrad was launched from the autograd thread at 330, while the main
     # thread sat in `backward`: it goes to loss.ssim.bwd; add_between was
@@ -70,28 +72,28 @@ def test_ops_go_to_the_innermost_span_on_their_launching_thread():
     assert got == {"conv": "encoder", "ssim_conv": "loss.ssim", "add_loss": "loss", "dgrad": "loss.ssim.bwd",
                    "mul": "loss.bwd", "add_between": "backward", "conv_bwd": "encoder.bwd",
                    "Memset": "backward", "adam": "optimizer", "copy": "step", "stray": None}
-    own, total = layer_trace.device_ns(t, SPANS, owner)
+    own, total = tracing.device_ns(t, SPANS, owner)
     assert own[5] == 5 and own[4] == 1  # the continuation's add, the main thread's memset
     assert total[0] == 217  # every op but the stray one
     assert total[2] == 40 and total[6] == 40 and total[4] == 126
 
 
 def test_thread_key_is_cuptis_32_bit_thread_id():
-    assert [layer_trace.thread_key(t) for t in (MAIN, AUTOGRAD, 5)] == [MAIN32, AUTOGRAD32, 5]
+    assert [tracing.thread_key(t) for t in (MAIN, AUTOGRAD, 5)] == [MAIN32, AUTOGRAD32, 5]
 
 
 def test_a_call_on_one_thread_never_goes_to_a_span_of_another():
     spans = [Span("step", 0, 100, None, 0, MAIN, 0), Span("loss.bwd", 0, 100, None, 0, AUTOGRAD, 0)]
     t = summary([(50, 60, "k", 7)], [(40, 41, "cudaLaunchKernel", 7, MAIN32)])
-    assert layer_trace.owners(t, spans).tolist() == [0]
+    assert tracing.owners(t, spans).tolist() == [0]
     t = summary([(50, 60, "k", 7)], [(40, 41, "cudaLaunchKernel", 7, 33)])  # a thread with no span
-    assert layer_trace.owners(t, spans).tolist() == [-1]
+    assert tracing.owners(t, spans).tolist() == [-1]
 
 
 def test_layer_ms_per_step_counts_forward_backward_and_their_children():
     t = step_trace()
-    _, total = layer_trace.device_ns(t, SPANS, layer_trace.owners(t, SPANS))
-    ms = {k: layer_trace.layer_ms_per_step(SPANS, total, k) for k in layer_trace.LAYERS}
+    _, total = tracing.device_ns(t, SPANS, tracing.owners(t, SPANS))
+    ms = {k: tracing.layer_ms_per_step(SPANS, total, names) for k, names in tracing.layers().items()}
     assert ms["encoder"] == pytest.approx((30 + 80) / 1e6)
     assert ms["loss"] == pytest.approx((10 + 30 + 10 + 30) / 1e6)
     assert ms["ssim"] == pytest.approx((30 + 30) / 1e6)
@@ -103,11 +105,12 @@ def test_layer_ms_per_step_counts_forward_backward_and_their_children():
     assert r["bwd_layer_share"] == pytest.approx(120 / 126)  # loss.bwd and encoder.bwd of backward's 126
     # the layers, backward's own (1 + 5) and step's own (1) make up the step's 217 of device time
     assert sum(r["own_device_ms"].values()) * 1e6 == pytest.approx(217)
+    assert r["parts_over_busy"] == pytest.approx(217 / 218) and r["busy_ms_per_step"] == pytest.approx(218 / 1e6)
 
 
 def test_idle_gaps_go_to_the_span_of_the_op_that_ended_them():
     t = step_trace()
-    idle = dict(layer_trace.idle_by_span(t, SPANS, layer_trace.owners(t, SPANS), top=20))
+    idle = dict(tracing.idle_by_span(t, SPANS, tracing.owners(t, SPANS), top=20))
     _, g0, g1 = tracing.busy_and_gaps(t)
     assert sum(idle.values()) == pytest.approx(float((g1 - g0).sum()) / 1e9)
     assert idle == pytest.approx({"encoder": 28e-9, "loss.ssim": 110e-9, "loss": 70e-9, "backward": 83e-9,
@@ -119,11 +122,11 @@ def test_idle_gaps_go_to_the_span_of_the_op_that_ended_them():
 
 def test_a_run_without_spans_reads_nothing():
     t = step_trace()
-    owner = layer_trace.owners(t, [])
+    owner = tracing.owners(t, [])
     assert (owner == -1).all()
-    _, total = layer_trace.device_ns(t, [], owner)
-    assert all(layer_trace.layer_ms_per_step([], total, k) is None for k in layer_trace.LAYERS)
-    assert layer_trace.idle_by_span(t, [], owner)[0][0] == "(no span)"
+    _, total = tracing.device_ns(t, [], owner)
+    assert all(tracing.layer_ms_per_step([], total, names) is None for names in tracing.layers().values())
+    assert tracing.idle_by_span(t, [], owner)[0][0] == "(no span)"
 
 
 def test_route_launches_seen_counts_k1_with_its_zero_fill():
@@ -142,7 +145,34 @@ def test_overlapping_ops_count_once_so_the_spans_add_up_to_busy():
     t = summary([(30, 50, "a", 1), (45, 60, "b", 2), (52, 55, "c", 3)],
                 [(1, 2, "cudaLaunchKernel", 1, MAIN32), (11, 12, "cudaLaunchKernel", 2, MAIN32),
                  (13, 14, "cudaLaunchKernel", 3, MAIN32)])
-    assert layer_trace.busy_ns(t).tolist() == [20, 10, 0]
-    own, total = layer_trace.device_ns(t, spans, layer_trace.owners(t, spans))
+    assert tracing.busy_ns(t).tolist() == [20, 10, 0]
+    own, total = tracing.device_ns(t, spans, tracing.owners(t, spans))
     busy, _, _ = tracing.busy_and_gaps(t)
     assert total[0] == 30 and busy == pytest.approx(30e-9) and own[1] == 20 and own[2] == 10
+
+
+# each layer metric of BENCHMARK.json and the device ns its spans hold in step_trace
+LAYER_NS = {"encoder_device_ms.train": 30 + 80, "hand_device_ms.train": None, "renderer_device_ms.train": None,
+            "loss_device_ms.train": 10 + 30 + 10 + 30, "ssim_device_ms.train": 30 + 30,
+            "vgg_device_ms.train": None, "optimizer_device_ms.train": 20}
+
+
+def test_each_layer_metric_reads_its_spans_device_ms():
+    names = {m["name"] for m in spec.load_benchmark()["per_layer"] if m["name"].endswith("_device_ms.train")}
+    assert names == set(LAYER_NS)
+    run = {"trace": step_trace(), "spans": SPANS, "steps": 1}
+    for name, ns in LAYER_NS.items():
+        got = spec.metric_reader(name)(run)
+        assert (got is None) if ns is None else got == pytest.approx(ns / 1e6), name
+    # a run without spans, or untraced, reads nothing
+    for run in ({"trace": step_trace(), "spans": [], "steps": 1}, {"trace": None, "spans": None, "steps": 1}):
+        assert all(spec.metric_reader(name)(run) is None for name in LAYER_NS)
+
+
+def test_a_port_without_spans_traces_with_none(monkeypatch):
+    from hifihr_tpu_torch.utils import profiling
+
+    monkeypatch.delattr(profiling, "spans")
+    result, summary, spans, counters = tracing.profile_window(lambda: 7)
+    assert result == 7 and spans == [] and set(counters) == set(profiling.counters)
+    assert "reduce_s" in summary and "cpu_thread" in summary

@@ -90,3 +90,82 @@ def test_mfu_and_roofline_read_nothing_without_their_source():
 def test_mfu_is_the_step_bound_over_the_time_per_step():
     run = {"flops": {"bf16_per_image": 989e9, "fp32_per_image": 67e9}, "batch": 2, "window_s": 4.0, "steps": 100}
     assert measures.mfu(run) == pytest.approx(100.0 * (2e-3 + 2e-3) / 0.04)
+
+
+def test_k5_takes_its_three_kernels():
+    t = trace([(0, 4, "void ssim_forward_kernel<3>(float const*)"), (4, 5, "ssim_sum_kernel(double const*)"),
+               (10, 13, "void ssim_backward_kernel<false>(float const*)"),
+               (20, 26, "void ssim_forward_kernel<3>(float const*)"), (26, 27, "ssim_sum_kernel(double const*)"),
+               (30, 35, "void ssim_backward_kernel<false>(float const*)")])
+    assert tracing.kernel_seconds_per_call(t, "K5") == pytest.approx((5 + 1 + 4) * 1e-9)
+    assert tracing.kernel_seconds_per_call(t, "K1") is None
+
+
+def test_k5_bound_is_the_larger_of_its_bytes_and_operations():
+    """One SSIM term moves its images read once and each wanted gradient
+    written once (K5's partial maps are its own, not counted), and computes
+    the moments' separable passes and the backward's passes over the maps
+    it needs; the larger time of the two bounds it."""
+    k5 = tracing.kernel_file("K5")
+    n = 64 * 224 * 224 * 3
+    # dx alone: 3 N floats, 0.0345 ms; 223 + 3 x 44 = 355 flops an element, 0.0510 ms: the operations
+    assert k5.FORWARD_OPS == 223 and k5.MAP_OPS == 44
+    assert k5.bound_s(((64, 224, 224, 3), True, False)) == pytest.approx(355 * n / roofline.FP32_OPS_PER_S)
+    assert k5.bound_s(((64, 224, 224, 3), True, False)) == pytest.approx(0.0510e-3, rel=2e-3)
+    assert 3 * n * 4 / roofline.HBM_BYTES_PER_S == pytest.approx(0.0345e-3, rel=2e-3)
+    # dx and dy: 4 maps; dy alone: 3 (a', b, c); no gradient: the forward alone
+    assert k5.bound_s(((2, 5, 7, 3), True, True)) == pytest.approx((223 + 4 * 44) * 210 / roofline.FP32_OPS_PER_S)
+    assert k5.bound_s(((2, 5, 7, 3), False, True)) == pytest.approx(355 * 210 / roofline.FP32_OPS_PER_S)
+    assert k5.bound_s(((2, 5, 7, 3), False, False)) == pytest.approx(223 * 210 / roofline.FP32_OPS_PER_S)
+    # the bytes bound where operations are few: roofline.bound_s takes the larger
+    assert roofline.bound_s(4 * 210 * 4, 0) == pytest.approx(4 * 210 * 4 / roofline.HBM_BYTES_PER_S)
+    calls = {"K5": [((64, 224, 224, 3), True, False), ((2, 5, 7, 3), True, True)]}
+    assert tracing.kernel_bound_seconds(calls, "K5") == pytest.approx(
+        (k5.bound_s(calls["K5"][0]) + k5.bound_s(calls["K5"][1])) / 2)
+
+
+def test_k1_to_k3_files_read_what_the_fixed_readers_did():
+    """On one recorded tiny run (the flagship's first train steps on the
+    CPU), the kernel files' wrappers and bounds give each call's least time
+    as K1-K3's fixed readers gave it, and the port's functions are
+    themselves again after the block."""
+    from bench_tiny import tiny_cell
+    from benchmark import calibrate
+    from benchmark.reference.render.raster import project_to_screen
+    from benchmark.reference.render.raster_msaa import msaa_prep
+    from hifihr_tpu_torch.losses import ssim
+    from hifihr_tpu_torch.render import gather, renderer
+
+    before = (renderer.PhongRenderer.select_faces, gather._gather, gather._scatter)
+    cell = tiny_cell("flagship_mano_res50.train_b64")
+    with tracing.kernel_calls(tracing.roofline_kernels(cell.per_layer)) as calls:
+        calibrate.program_first_steps(cell, 2**31 + 31, "cpu")
+    assert (renderer.PhongRenderer.select_faces, gather._gather, gather._scatter) == before
+    assert "apply" not in vars(ssim._SSIMKernel)
+    assert sorted(calls) == ["K1", "K2", "K3", "K5"] and not calls["K5"]  # SSIM's kernel runs on the card alone
+    fixed = {
+        "K1": [roofline.k1_bound_s(msaa_prep(project_to_screen(v, K), faces)[1], size, samples)
+               for v, K, faces, size, samples in calls["K1"]],
+        "K2": [roofline.k2_bound_s(shape, idx) for shape, idx in calls["K2"]],
+        "K3": [roofline.k3_bound_s(shape, idx, n) for shape, idx, n in calls["K3"]],
+    }
+    for k, bounds in fixed.items():
+        assert len(bounds) >= 4, k  # a call each train step at least
+        assert tracing.kernel_bound_seconds(calls, k) == float(np.mean(bounds)), k
+
+
+def test_only_the_kernels_a_cell_reports_are_wrapped():
+    """A kernel file whose roofline the cell does not report wraps nothing in
+    its traced window: K2 alone is wrapped for a k2_roofline metric."""
+    from hifihr_tpu_torch.losses import ssim
+    from hifihr_tpu_torch.render import gather, renderer
+
+    per_layer = [{"name": "k2_roofline.train"}, {"name": "mfu.train"}, {"name": "device_idle_share.train"}]
+    assert tracing.roofline_kernels(per_layer) == ["K2"]
+    assert tracing.roofline_kernels([{"name": "mfu.train"}]) == []
+    select, gather_fn, scatter = renderer.PhongRenderer.select_faces, gather._gather, gather._scatter
+    with tracing.kernel_calls(tracing.roofline_kernels(per_layer)) as calls:
+        assert gather._gather is not gather_fn
+        assert (renderer.PhongRenderer.select_faces, gather._scatter) == (select, scatter)
+        assert "apply" not in vars(ssim._SSIMKernel)
+    assert sorted(calls) == ["K2"] and gather._gather is gather_fn

@@ -5,6 +5,8 @@ whole run of each cell."""
 
 from __future__ import annotations
 
+import importlib.util
+import json
 import os
 import subprocess
 import sys
@@ -18,16 +20,35 @@ from benchmark import run as bench_run
 from benchmark import spec
 
 
-def test_reference_sources_import_no_port_and_no_jax():
-    bad = ("hifihr_tpu", "jax", "flax")
-    for dirpath, _, files in os.walk(os.path.join(spec.HERE, "reference")):
+def reference_packages() -> list[str]:
+    """The default reference and every package a configuration names."""
+    named = set()
+    for conf in spec.load_benchmark()["configs"]:
+        with open(os.path.join(spec.ROOT, conf["file"])) as f:
+            named.add(json.load(f).get("reference", spec.DEFAULT_REFERENCE))
+    return sorted(named | {spec.DEFAULT_REFERENCE})
+
+
+@pytest.mark.parametrize("package", reference_packages())
+def test_reference_sources_import_no_port_and_no_jax(package):
+    """Every source of the package imports neither the port nor JAX, and of
+    the benchmark only reference packages."""
+    bad = ("hifihr_tpu", "hifihr_tpu_torch", "jax", "jaxlib", "flax")
+    refs = {p.split(".")[1] for p in reference_packages()}
+    for dirpath, _, files in os.walk(importlib.util.find_spec(package).submodule_search_locations[0]):
         for f in files:
             if f.endswith(".py"):
                 with open(os.path.join(dirpath, f)) as fh:
                     for line in fh:
-                        words = line.split()
-                        if words[:1] in (["import"], ["from"]) and len(words) > 1:
-                            assert words[1].split(".")[0] not in bad, (f, line)
+                        words = line.replace(",", " ").split()
+                        if words[:1] not in (["import"], ["from"]) or len(words) < 2:
+                            continue
+                        top = words[1].split(".")
+                        assert top[0] not in bad, (f, line)
+                        if top[0] == "benchmark":
+                            # benchmark.<x>..., or `from benchmark import <x>, ...`
+                            parts = top[1:2] if len(top) > 1 else words[3:]
+                            assert parts and all(p in refs for p in parts), (f, line)
 
 
 def test_reference_loads_no_port_module():
