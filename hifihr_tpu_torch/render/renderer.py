@@ -20,6 +20,13 @@ PhongRenderer), in two anti-aliasing modes:
   (`torch.utils.checkpoint`, JAX's `jax.checkpoint`): its supersampled
   activations are 9x the MSAA path's.
 
+Spans (utils/profiling.py): `renderer.raster` around the face selection (K1
+or K4); `renderer.shade` around the SSAA shade pass, and
+`renderer.shade.recompute` around its recompute, which runs inside
+`renderer.shade.bwd` on the autograd engine's thread (counted on
+`ssaa_shade.recomputes`); `renderer.texture` inside it
+(render/texture.py).
+
 The UV path (a `texture_image` and a UV chart given; NIMBLE with
 `nimble_corner_tex=False` in MSAA, and NIMBLE in SSAA): the channels are
 [tangents, normals] (with the 7-channel maps) or [normals], the per-face
@@ -53,6 +60,7 @@ from hifihr_tpu_torch.render.raster import project_to_screen, rasterize_face_id
 from hifihr_tpu_torch.render.raster_msaa import rasterize_msaa
 from hifihr_tpu_torch.render.shading import DirectionalLight, phong_shade
 from hifihr_tpu_torch.render.texture import sample_texture
+from hifihr_tpu_torch.utils import profiling
 
 
 class _Plan(NamedTuple):
@@ -151,18 +159,20 @@ class PhongRenderer(nn.Module):
     def select_faces(self, verts_cam: torch.Tensor, K: torch.Tensor):
         """(face_id, coverage) at base resolution through K1."""
         s = self.settings
-        verts_screen = project_to_screen(verts_cam.detach(), K)
-        face_id, coverage, _ = rasterize_msaa(verts_screen, self.faces, s.image_size,
-                                              samples=s.aa_factor)
+        with profiling.span("renderer.raster"):
+            verts_screen = project_to_screen(verts_cam.detach(), K)
+            face_id, coverage, _ = rasterize_msaa(verts_screen, self.faces, s.image_size,
+                                                  samples=s.aa_factor)
         return face_id, coverage
 
     def select_faces_ssaa(self, verts_cam: torch.Tensor, K: torch.Tensor):
         """(face_id, zbuf) at the supersampled resolution through K4; K holds
         the base image's intrinsics."""
         s = self.settings
-        K_big = _scale_intrinsics(K, float(s.aa_factor))
-        verts_screen = project_to_screen(verts_cam.detach(), K_big)
-        return rasterize_face_id(verts_screen, self.faces, s.image_size * s.aa_factor)
+        with profiling.span("renderer.raster"):
+            K_big = _scale_intrinsics(K, float(s.aa_factor))
+            verts_screen = project_to_screen(verts_cam.detach(), K_big)
+            return rasterize_face_id(verts_screen, self.faces, s.image_size * s.aa_factor)
 
     def rasterize(self, verts_cam: torch.Tensor, K: torch.Tensor):
         """(frag, verts_screen) at the supersampled resolution: frag is
@@ -284,14 +294,25 @@ class PhongRenderer(nn.Module):
         s = self.settings
         K_big = _scale_intrinsics(K, float(s.aa_factor))
         face_id, _ = self.select_faces_ssaa(verts_cam, K)
+        runs = [0]  # the shade's runs: the first is the forward, a later one checkpoint's recompute
 
         def shade(verts_cam, vert_colors, texture_image):
-            frag = barycentric_coords(face_id, project_to_screen(verts_cam, K_big), self.faces)
-            pix = interpolate_attribute(frag, self._assemble(plan, verts_cam, vert_colors, include_points=True))
-            pix_uv = None
-            if plan.use_uv and self.face_uv is not None:
-                pix_uv = interpolate_face_attribute(frag, face_id, self.face_uv)
-            return _avg_pool(self._shade_pix(plan, pix, pix_uv, texture_image, frag["mask"], light), s.aa_factor)
+            recompute = runs[0] > 0
+            runs[0] += 1
+            if recompute:
+                profiling.counters["ssaa_shade.recomputes"] += 1
+            name = "renderer.shade.recompute" if recompute else "renderer.shade"
+            with profiling.span(name, (verts_cam, vert_colors, texture_image)) as sp:
+                frag = barycentric_coords(face_id, project_to_screen(verts_cam, K_big), self.faces)
+                pix = interpolate_attribute(frag, self._assemble(plan, verts_cam, vert_colors,
+                                                                 include_points=True))
+                pix_uv = None
+                if plan.use_uv and self.face_uv is not None:
+                    pix_uv = interpolate_face_attribute(frag, face_id, self.face_uv)
+                out = _avg_pool(self._shade_pix(plan, pix, pix_uv, texture_image, frag["mask"], light),
+                                s.aa_factor)
+                sp.outputs(out)
+            return out
 
         if not torch.is_grad_enabled():  # eval under inference_mode: nothing to recompute
             return shade(verts_cam, vert_colors, texture_image)

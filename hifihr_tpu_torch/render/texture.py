@@ -8,7 +8,9 @@ packed into one row of a (B, Ht * Wt, 4C) table, and the per-pixel fetch
 of that row is K2 (`render.gather.gather_rows`), whose backward, K3,
 scatter-adds each pixel's quad gradient into its row; the packing's
 backward then sums the four shifted copies into the texture. On a CPU
-tensor K2 is its plain version, an indexing gather.
+tensor K2 is its plain version, an indexing gather. Each call is the span
+`renderer.texture` (with `renderer.texture.bwd`, utils/profiling.py) and
+counts one on `sample_texture.launches`.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch
 
 from hifihr_tpu_torch import constant
 from hifihr_tpu_torch.render.gather import gather_rows
+from hifihr_tpu_torch.utils import profiling
 
 
 def texel_quads(tex: torch.Tensor) -> torch.Tensor:
@@ -52,13 +55,17 @@ def sample_texture(tex: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
     """Bilinear sample: tex (B, Ht, Wt, C), uv (B, ..., 2) -> (B, ..., C),
     differentiable in both (in uv through the bilinear weights)."""
     B, Ht, Wt, C = tex.shape
-    idx, fx, fy = texel_index(uv, Ht, Wt)
-    q = gather_rows(texel_quads(tex).contiguous(), idx).reshape(*uv.shape[:-1], 4 * C)
-    t00, t01 = q[..., 0:C], q[..., C:2 * C]
-    t10, t11 = q[..., 2 * C:3 * C], q[..., 3 * C:]
-    top = t00 * (1 - fx) + t01 * fx
-    bot = t10 * (1 - fx) + t11 * fx
-    return top * (1 - fy) + bot * fy
+    profiling.counters["sample_texture.launches"] += 1
+    with profiling.span("renderer.texture", (tex, uv)) as sp:
+        idx, fx, fy = texel_index(uv, Ht, Wt)
+        q = gather_rows(texel_quads(tex).contiguous(), idx).reshape(*uv.shape[:-1], 4 * C)
+        t00, t01 = q[..., 0:C], q[..., C:2 * C]
+        t10, t11 = q[..., 2 * C:3 * C], q[..., 3 * C:]
+        top = t00 * (1 - fx) + t01 * fx
+        bot = t10 * (1 - fx) + t11 * fx
+        out = top * (1 - fy) + bot * fy
+        sp.outputs(out)
+    return out
 
 
 def cylindrical_uv(verts: torch.Tensor, axis: int = 1) -> torch.Tensor:

@@ -38,8 +38,8 @@ first span opened hangs under a continuation of the recording thread's
 innermost span, of the same name and closed with it, so what that thread
 launches outside a layer's `.bwd` span counts to `backward`.
 
-Counters. `counters` holds the kernel routes' launch counts, always on (one
-integer add a call):
+Counters. `counters` holds the kernel routes' launch counts and two counts of
+the SSAA render's work, always on (one integer add a call):
   rasterize_msaa.launches             K1 routes (one per call on a CUDA tensor)
   rasterize_msaa.device_launches      K1 launches, as the C route counts them
   rasterize_face_id.launches          K4 routes
@@ -47,6 +47,11 @@ integer add a call):
   gather_rows.launches                K2 launches
   scatter_rows.launches               K3 launches (gather_rows' backward too)
   ssim.launches                       K5 launches (losses/ssim.py: two a forward, one a backward)
+  sample_texture.launches             render/texture.py::sample_texture calls, each one K2 fetch of
+                                      texel quads (on the CPU too: two an SSAA train step, the
+                                      shade and its recompute)
+  ssaa_shade.recomputes               recomputes of the SSAA shade pass in backward (one an SSAA
+                                      train step; on the CPU too)
 
 Trace. `trace(log_dir)` runs torch.profiler (CPU activity, and CUDA
 activity where there is a card) with the spans on over the block and writes
@@ -69,7 +74,8 @@ import torch
 
 counters = dict.fromkeys(("rasterize_msaa.launches", "rasterize_msaa.device_launches",
                           "rasterize_face_id.launches", "rasterize_face_id.device_launches",
-                          "gather_rows.launches", "scatter_rows.launches", "ssim.launches"), 0)
+                          "gather_rows.launches", "scatter_rows.launches", "ssim.launches",
+                          "sample_texture.launches", "ssaa_shade.recomputes"), 0)
 
 
 @dataclass(frozen=True)

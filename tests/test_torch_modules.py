@@ -218,22 +218,23 @@ def test_renderer_msaa_matches_jax(monkeypatch):
     np.testing.assert_allclose(out, ref, atol=1e-5)
 
 
-def test_resnet50_encoder_heads_and_light_estimator():
-    """The flagship encoder (res50, 224^2) with its heads and light
-    estimator, fp32, B=1, from converted weights."""
+def _encoder_and_heads_match_jax(pretrain, light_estimation, image_size, seed):
+    """The encoder `pretrain` with its heads (and light estimator), fp32,
+    B=1, from converted JAX weights: low, feat and the hand outputs within
+    1e-4 of the JAX package."""
     from hifihr_tpu.models.hifihr import HiFiHR as JModel
     from hifihr_tpu.networks.resnet import ResNetEncoder as JEncoder
     from hifihr_tpu_torch.convert import state_dict_from_flax
     from hifihr_tpu_torch.models.hifihr import HiFiHR
 
-    d = dict(pretrain="res50", hand_model="mano", render=False, light_estimation=True,
-             image_size=224, compute_dtype="float32")
+    d = dict(pretrain=pretrain, hand_model="mano", render=False, light_estimation=light_estimation,
+             image_size=image_size, compute_dtype="float32")
     jm = JModel(config=JConfig(**d))
-    imgs = np.random.RandomState(9).rand(1, 224, 224, 3).astype(np.float32)
+    imgs = np.random.RandomState(seed).rand(1, image_size, image_size, 3).astype(np.float32)
     v = jax.jit(lambda x: jm.init(jax.random.PRNGKey(1), x, train=False))(jnp.asarray(imgs))
-    v = randomize_variables(v, seed=9)
+    v = randomize_variables(v, seed=seed)
     ref = jax.jit(lambda v, x: jm.apply(v, x, train=False))(v, jnp.asarray(imgs))
-    jlow, jfeat = JEncoder(variant="res50").apply(
+    jlow, jfeat = JEncoder(variant=pretrain).apply(
         {"params": v["params"]["encoder"], "batch_stats": v["batch_stats"]["encoder"]},
         jnp.asarray(imgs), train=False)
 
@@ -243,14 +244,31 @@ def test_resnet50_encoder_heads_and_light_estimator():
     with torch.no_grad():
         low, feat = tm.encoder(_t(imgs))
         out = tm(_t(imgs))
-    assert low.shape == (1, 512, 28, 28) and feat.shape == (1, 2048)
+    assert low.shape == (1, 512, image_size // 8, image_size // 8) and feat.shape == (1, 2048)
     np.testing.assert_allclose(low.permute(0, 2, 3, 1).numpy(), np.asarray(jlow), rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(feat.numpy(), np.asarray(jfeat), rtol=1e-4, atol=1e-4)
     for k in ("pose_params", "shape_params", "scale", "trans", "rot", "joints", "mano_verts"):
         np.testing.assert_allclose(out[k].numpy(), np.asarray(ref[k]), rtol=1e-4, atol=1e-4)
-    for k in ("colors", "directions"):
-        np.testing.assert_allclose(out["light_params"][k].numpy(),
-                                   np.asarray(ref["light_params"][k]), rtol=1e-4, atol=1e-4)
+    if light_estimation:
+        for k in ("colors", "directions"):
+            np.testing.assert_allclose(out["light_params"][k].numpy(),
+                                       np.asarray(ref["light_params"][k]), rtol=1e-4, atol=1e-4)
+    else:
+        assert "light_params" not in out
+
+
+def test_resnet50_encoder_heads_and_light_estimator():
+    """The flagship encoder (res50, 224^2) with its heads and light
+    estimator, fp32, B=1, from converted weights."""
+    _encoder_and_heads_match_jax("res50", True, 224, seed=9)
+
+
+def test_resnet101_encoder_and_heads():
+    """The textured FreiHAND configuration's encoder, res101 (Bottleneck
+    blocks 3, 4, 23, 3; layer3_0 to layer3_22 converted by name, loaded
+    strictly), with its heads and no light estimator, as that configuration
+    runs; at 64^2, which the encoder takes without the estimator."""
+    _encoder_and_heads_match_jax("res101", False, 64, seed=19)
 
 
 def test_stem_conversion_inverts_the_s2d_layout():
@@ -298,7 +316,7 @@ def test_normalize_batch_and_cuda_default():
             build_model(Config(pretrain="res18", light_estimation=False, image_size=32))
 
 
-@pytest.mark.parametrize("pretrain", ["res18", "res50"])
+@pytest.mark.parametrize("pretrain", ["res18", "res50", "res101"])
 def test_init_distributions_resnet(pretrain):
     """init_weights draws every conv of the ResNet models as flax does: the
     s2d stem variance_scaling(2, fan_out) over its (4, 4, 12, 64) shape, the
@@ -319,7 +337,7 @@ def test_init_distributions_resnet(pretrain):
     jsd = state_dict_from_flax(numpy_tree(v))
     model = init_weights(HiFiHR(Config(**d)), seed=3)
     convs = {n: m for n, m in model.named_modules() if isinstance(m, torch.nn.Conv2d)}
-    assert len(convs) == {"res18": 20, "res50": 53}[pretrain] + 3  # the light estimator's three
+    assert len(convs) == {"res18": 20, "res50": 53, "res101": 104}[pretrain] + 3  # the light estimator's three
     for name, m in convs.items():
         w, ref = m.weight.detach(), jsd[f"{name}.weight"]
         if isinstance(m, StemConv):

@@ -24,7 +24,7 @@ and its gradients 1e-3 relative L2; step 2's total 1e-4 and its terms
 import numpy as np
 import pytest
 
-from torch_port_helpers import nimble_slice_batch, nimble_step_runs, rel_l2
+from torch_port_helpers import nimble_slice_batch, nimble_step_runs, one_torch_thread, rel_l2  # noqa: F401
 
 B, S = 8, 32
 LOSSES = ("joint_3d", "joint_2d", "vert_3d", "mscale", "mshape", "mpose", "sil", "iou",
@@ -38,7 +38,7 @@ ZERO_GRAD_BIASES = {"hand_encoder.base_fc0.bias": "hand_encoder.base_fc0.weight"
 
 @pytest.fixture(scope="module")
 def runs():
-    return nimble_step_runs(CFG, nimble_slice_batch(B, S))
+    return nimble_step_runs(CFG, nimble_slice_batch(B, S), seeded_init=True)
 
 
 def test_ssaa_own_face_choice(runs):

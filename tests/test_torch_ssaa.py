@@ -41,7 +41,8 @@ from hifihr_tpu_torch.assets import load_mano_model
 from hifihr_tpu_torch.render import raster as traster
 from hifihr_tpu_torch.render.renderer import morton_face_order
 from hifihr_tpu_torch.utils.profiling import counters
-from torch_port_helpers import fake_K, jax_ssaa_select_op_by_op, posed_mano_verts, randomize_variables, rel_l2
+from torch_port_helpers import (fake_K, jax_ssaa_select_op_by_op, one_torch_thread,  # noqa: F401
+                                posed_mano_verts, rel_l2, seeded_variables)
 
 
 def _k4_both(vs: np.ndarray, faces: np.ndarray, S: int):
@@ -433,8 +434,8 @@ def slice_runs():
         jcfg = JConfig(**CFG)
         jm = JModel(config=jcfg)
         jb = {k: jnp.asarray(v) for k, v in batch.items()}
-        v = jax.jit(lambda b: jm.init(jax.random.PRNGKey(0), b["imgs"], b["Ks"], b["root_xyz"], train=False))(jb)
-        v = randomize_variables(v, seed=0)
+        v = seeded_variables(jax.eval_shape(
+            lambda b: jm.init(jax.random.PRNGKey(0), b["imgs"], b["Ks"], b["root_xyz"], train=False), jb), 0)
         state = namedtuple("State", "params batch_stats")(v["params"], v["batch_stats"])
         jeval = {k: np.asarray(x) for k, x in jmake_eval_step(jm, "FreiHand", jcfg)(state, jb).items()}
         jeval_fid = jax_fid[-1]

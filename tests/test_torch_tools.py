@@ -313,7 +313,7 @@ def test_train_step_with_spans_on_is_bit_equal_and_splits_the_backward():
     first = [(s.name, path(s)) for s in rec if s.step == 0]
     assert first == [
         ("step", ""), ("optimizer", "step"), ("encoder", "step"), ("hand", "step"), ("renderer", "step"),
-        ("loss", "step"), ("loss.ssim", "step/loss"), ("loss.ssim", "step/loss"), ("loss.perceptual", "step/loss"),
+        ("renderer.raster", "step/renderer"), ("loss", "step"), ("loss.ssim", "step/loss"), ("loss.ssim", "step/loss"), ("loss.perceptual", "step/loss"),
         ("backward", "step"), ("loss.bwd", "step/backward"), ("loss.perceptual.bwd", "step/backward/loss.bwd"),
         ("loss.ssim.bwd", "step/backward/loss.bwd"), ("loss.ssim.bwd", "step/backward/loss.bwd"),
         ("renderer.bwd", "step/backward"), ("hand.bwd", "step/backward"), ("encoder.bwd", "step/backward"),
@@ -333,7 +333,8 @@ def test_route_counters_live_in_the_registry():
 
     assert set(counters) == {"rasterize_msaa.launches", "rasterize_msaa.device_launches",
                              "rasterize_face_id.launches", "rasterize_face_id.device_launches",
-                             "gather_rows.launches", "scatter_rows.launches", "ssim.launches"}
+                             "gather_rows.launches", "scatter_rows.launches", "ssim.launches",
+                             "sample_texture.launches", "ssaa_shade.recomputes"}
     for fn in (raster_msaa.rasterize_msaa, raster.rasterize_face_id, gather.gather_rows, gather.scatter_rows):
         assert not hasattr(fn, "launches") and not hasattr(fn, "device_launches")
     before = dict(counters)

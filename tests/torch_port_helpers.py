@@ -232,10 +232,12 @@ def nimble_slice_batch(batch: int, size: int) -> dict:
     }
 
 
-def nimble_step_runs(cfg: dict, batch: dict) -> tuple:
+def nimble_step_runs(cfg: dict, batch: dict, seeded_init: bool = False) -> tuple:
     """The eval step and two train steps of each package from the same
     converted weights on `batch`, in configuration `cfg` (a NIMBLE render,
-    MSAA or SSAA). JAX's face selection is recorded (MSAA: the Pallas kernel
+    MSAA or SSAA); the weights are drawn by `seeded_variables` over the
+    shapes of JAX's init where `seeded_init` is set, else by its jitted
+    init and `randomize_variables`. JAX's face selection is recorded (MSAA: the Pallas kernel
     interpreted op by op; SSAA: raster_jax jitted) and the port shades JAX's
     choice, keeping its own; JAX's corner accumulation takes its fp32
     scatter-add fallback (its bf16 incidence matmul for NIMBLE's mesh is off
@@ -286,8 +288,11 @@ def nimble_step_runs(cfg: dict, batch: dict) -> tuple:
         jcfg = JConfig(**cfg)
         jm = JModel(config=jcfg)
         jb = {k: jnp.asarray(v) for k, v in batch.items()}
-        v = jax.jit(lambda b: jm.init(jax.random.PRNGKey(0), b["imgs"], b["Ks"], b["root_xyz"], train=False))(jb)
-        v = randomize_variables(v, seed=0)
+        init = lambda b: jm.init(jax.random.PRNGKey(0), b["imgs"], b["Ks"], b["root_xyz"], train=False)  # noqa: E731
+        if seeded_init:
+            v = seeded_variables(jax.eval_shape(init, jb), 0)
+        else:
+            v = randomize_variables(jax.jit(init)(jb), seed=0)
         del jax_faces[:]  # init's render
         estate = namedtuple("State", "params batch_stats")(v["params"], v["batch_stats"])
         jeval = {k: np.asarray(x) for k, x in jmake_eval_step(jm, "FreiHand", jcfg)(estate, jb).items()}
