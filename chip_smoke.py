@@ -58,9 +58,10 @@ over a few eval steps and a few train steps of every cell. Phases:
      over STEPS (8) steps; the fp32 SSAA eval step on the card against the CPU in
      the train-slice test's configuration (res18, 32 px, 8 images)
  10. the SSAA train step (the same model and batch of 8): the checks of
-     phase 7, with K4, K2 and K3 launched, the card-against-CPU step in the
-     train-slice test's configuration with aa_mode="ssaa", and K3 on each of
-     the step's two launches and K4 on its route at both captured steps
+     phase 7, with K4 and K6 launched (K6 once in the eval step and twice
+     in the train step, no composed texture sample and no recompute), the
+     card-against-CPU step in the train-slice test's configuration with
+     aa_mode="ssaa", and K4 on its route at both captured steps
  11. K1, K2 and K3 at NIMBLE's shapes, on 64 posed NIMBLE hands (the
      port's NimbleLayer on numpy-seeded pose, shape and appearance, 11,926
      faces, placed as the model places them, at 224^2): K1's route exactly
@@ -207,8 +208,7 @@ over a few eval steps and a few train steps of every cell. Phases:
      size): the checks of phases 9 and 10, the CPU step shading the card's
      K4 choice, and K4 held bit-equal to its plain version and timed on the
      step's own NIMBLE hands at step 1 and after the timed steps (beside
-     phase 8's tori); K2 and K3 on its texture quad, (8, 65536, 28) x
-     (8, 451584)
+     phase 8's tori); K2 and K3 only in its corner gathers (K6 shades)
  23. test-time MANO fitting: configs/smoke_render.json with test_refinement
      through the entry's evaluation (--mode evaluation) on the synthetic
      stand-in: pa_mpjpe_cm and pa_mpjpe_refined_cm finite; one batch's fit
@@ -279,6 +279,13 @@ over a few eval steps and a few train steps of every cell. Phases:
      shapes and a ragged one; a `{"K5": [...]}` line with its times,
      bounds, the plain version's and the library route's times. Every train
      step holds `ssim.launches` at three per SSIM term
+ 35. (right after phase 34) K6, the SSAA shade pass's forward and backward,
+     against the plain composed shade on the card (`phase_k6`): 80 NIMBLE
+     hands at 672^2 with the 7-channel maps (the textured cell's shapes) and
+     64 MANO hands in vertex colours with the estimated light's leaves; the
+     render within K6_FWD_TOL and each gradient within K6_GRAD_TOL, the
+     launch counts, a `{"K6": [...]}` line with the device ms of each
+     launch beside its byte bound and the plain version's time
 
 The `{"kernels": [...]}` line also holds every kernel's launches per step
 of the new cells (`launches_mano_new_*`, `launches_nimble_uv_*`,
@@ -288,8 +295,8 @@ of the new cells (`launches_mano_new_*`, `launches_nimble_uv_*`,
 `launches_demo`), K1's 2 x 2 reading on the turntable (`turntable_2x2`), K1's
 and K3's on the HRNet and four-channel steps' inputs, K4's readings on
 NIMBLE's SSAA hands (`nimble_ssaa_hand`), K1's and K3's on the UV steps'
-inputs, and K2's and K3's on the texture quads (`texture_quad_nimble_uv`,
-`texture_quad_nimble_ssaa`).
+inputs, and K2's and K3's on the UV step's texture quad
+(`texture_quad_nimble_uv`).
 
 Every step phase prints its median, images/s, device busy ms and launches
 per step (torch.profiler over two steps), peak memory and its seconds; the
@@ -1111,7 +1118,9 @@ def phase_k4(batch: dict) -> dict:
 
 # the kernels each render mode's steps launch; the others must stay at 0
 PATH_KERNELS = {"msaa": ("K1 msaa_raster", "K2 gather_rows", "K3 scatter_rows"),
-                "ssaa": ("K4 face_raster", "K2 gather_rows", "K3 scatter_rows")}
+                "ssaa": ("K4 face_raster", "K6 ssaa_shade")}
+# NIMBLE's SSAA steps also gather its corners for the normals and tangents (K2, K3 in backward)
+NIMBLE_SSAA_PATH = ("K4 face_raster", "K2 gather_rows", "K3 scatter_rows", "K6 ssaa_shade")
 
 
 # K5 at the flagship's two calls a step, the paper's one, and a ragged shape
@@ -1242,6 +1251,167 @@ def phase_ssim() -> None:
     print(f"phase K5 (SSIM): {time.perf_counter() - t0:.1f} s")
 
 
+# K6 at the textured FreiHAND cell's batch (benchmark/configs/texture_nimble_res101_ssaa.json) and at
+# the flagship's MANO batch with the light estimator's light
+K6_B = 80
+K6_FWD_TOL = 1e-5  # absolute, on the pooled render (tests/test_torch_ssaa_reference.py's LIMIT)
+K6_GRAD_TOL = 1e-4  # relative L2, each input's gradient
+
+
+def k6_textured_scene(batch: dict, seed: int = 4) -> tuple:
+    """K6_B posed NIMBLE hands with their 7-channel UV maps, placed as the
+    model places them (the flagship batch's roots and intrinsics, cycled),
+    and the model's NIMBLE SSAA renderer (per-face atlas, Morton order).
+    Returns (camera-space verts, albedo, maps, K, renderer)."""
+    from hifihr_tpu_torch.hand.nimble import NimbleLayer
+    from hifihr_tpu_torch.render.renderer import PhongRenderer, RenderSettings
+
+    dev = batch["Ks"].device
+    rng = np.random.RandomState(seed)
+    layer = NimbleLayer().to(dev)
+    params = {k: torch.tensor(rng.randn(K6_B, n) * 0.5, dtype=torch.float32, device=dev)
+              for k, n in (("pose_params", 30), ("shape_params", 20), ("texture_params", 10))}
+    with torch.no_grad():
+        out = layer(params)
+    rep = torch.arange(K6_B, device=dev) % B
+    verts = out["skin_verts"] - out["nimble_joints"][:, 11:12] + batch["root_xyz"][rep]
+    renderer = PhongRenderer(layer.faces_np, layer.v_template_np, RenderSettings(S, AA, "ssaa"),
+                             vert_uv=layer.vert_uv_np, face_uv=layer.face_uv_np).to(dev)
+    return verts, out["skin_albedo"], out["textures"].contiguous(), batch["Ks"][rep], renderer
+
+
+def k6_case(renderer, verts, colors, K, light, texture, what: str, light_leaves: tuple = ()) -> dict:
+    """K6 (render/ssaa_shade.py) against the plain composed shade
+    (`PhongRenderer._shade_plain`, K2 and K3 inside) on the card, on the same
+    K4 face choice: the pooled render within K6_FWD_TOL, the gradient of a
+    seeded upstream gradient to the screen vertices, the channels, the maps
+    and the light's leaves each within K6_GRAD_TOL relative L2; two launches
+    for a forward and backward, one under inference_mode (equal to the
+    forward with grad). Times by CUDA events and each launch's device time,
+    beside the byte bounds and the plain version's time."""
+    from hifihr_tpu_torch.render.raster import project_to_screen
+    from hifihr_tpu_torch.render.renderer import _scale_intrinsics
+    from hifihr_tpu_torch.render.ssaa_shade import LAYOUTS, ssaa_shade
+    from hifihr_tpu_torch.utils.profiling import counters
+
+    plan = renderer._plan(colors, texture)
+    kind = "colors" if not plan.use_uv else "chart" if plan.uv_in_verts else "atlas"
+    with torch.no_grad():
+        face_id, _ = renderer.select_faces_ssaa(verts, K)
+        screen = project_to_screen(verts, _scale_intrinsics(K, float(AA)))
+        attrs = renderer._assemble(plan, verts, colors, include_points=True)
+    n = verts.shape[0]
+    grad = torch.rand(n, S, S, 5, generator=torch.Generator(device="cuda").manual_seed(6), device="cuda") - 0.5
+
+    def leaves(requires_grad: bool = True) -> list:
+        return [None if t is None else t.detach().clone().requires_grad_(requires_grad)
+                for t in (screen, attrs, texture)]
+
+    def k6(x):
+        return ssaa_shade(face_id, x[0], x[1], renderer.faces, light, AA, kind, plan.with_maps,
+                          face_uv=renderer.face_uv if kind == "atlas" else None, texture=x[2])
+
+    def plain(x):
+        return renderer._shade_plain(plan, face_id, x[0], x[1], light, x[2])
+
+    def grads(run, x=None):
+        x = leaves() if x is None else x
+        out = run(x)
+        return out.detach(), torch.autograd.grad(out, [t for t in x if t is not None] + list(light_leaves), grad)
+
+    before = counters["ssaa_shade.kernel_launches"]
+    out, g = grads(k6)
+    check(counters["ssaa_shade.kernel_launches"] - before == 2, f"K6 on {what}: two launches, forward and backward")
+    before = counters["ssaa_shade.kernel_launches"]
+    with torch.inference_mode():
+        eval_out = k6(leaves(False))
+    check(counters["ssaa_shade.kernel_launches"] - before == 1, f"K6 on {what}: one launch under inference_mode")
+    check(torch.equal(eval_out, out), f"K6 on {what}: the eval render is the train forward's")
+    pout, pg = grads(plain)
+    names = ["screen", "channels"] + (["maps"] if texture is not None else []) + \
+        [f"light_{i}" for i in range(len(light_leaves))]
+    gaps = {"forward_max_abs": (out - pout).abs().max().item()}
+    for name, a, b in zip(names, g, pg):
+        check(b.norm().item() > 0, f"K6 on {what}: the plain version's {name} gradient is not zero")
+        gaps[name] = ((a - b).norm() / b.norm()).item()
+    covered = (face_id >= 0).float().mean().item()
+    print(f"K6 on {what}: {covered:.4f} of supersamples covered, gaps to the plain version {json.dumps(gaps)}")
+    check(gaps["forward_max_abs"] <= K6_FWD_TOL, f"K6 on {what}: the render within {K6_FWD_TOL} of the plain version")
+    check(max(v for k, v in gaps.items() if k != "forward_max_abs") < K6_GRAD_TOL,
+          f"K6 on {what}: every gradient within {K6_GRAD_TOL} relative L2 of the plain version")
+    del pout, pg
+
+    x = leaves()
+    ins = [t for t in x if t is not None] + list(light_leaves)
+
+    def fwd_bwd():
+        torch.autograd.grad(k6(x), ins, grad)
+
+    parts = {}
+    for name, (t, _) in device_ms(fwd_bwd).items():
+        part = "forward" if "shade_forward" in name else "backward" if "shade_backward" in name else "other"
+        parts[part] = parts.get(part, 0.0) + t
+    lay = LAYOUTS[kind, plan.with_maps]
+    fid_b, out_b = face_id.numel() * 4, out.numel() * 4
+    table_b = screen.shape[0] * screen.shape[1] * lay.width * 4
+    tex_b = 0 if texture is None else texture.numel() * 4
+    with torch.inference_mode():
+        eval_ms = time_ms(lambda: k6(leaves(False)), reps=20)
+    reading = {"what": what, "kind": kind, "maps": plan.with_maps, "shape": [n, S * AA, S * AA], "covered": covered,
+               "gaps": gaps, "device_ms": parts, "ms": {"forward_eval": eval_ms, "forward_backward": time_ms(fwd_bwd, 10)},
+               "bound_ms": {"forward": bound(fid_b + out_b + table_b + tex_b)[0],
+                            "backward": bound(fid_b + out_b + 2 * table_b + 2 * tex_b)[0]},
+               "plain_ms": time_ms(lambda: grads(plain), reps=2, groups=1)}
+    print(f"K6 on {what}: " + json.dumps(reading))
+    return reading
+
+
+def phase_k6(batch: dict) -> list:
+    """K6 at the textured cell's shapes (80 NIMBLE hands, 672^2, the
+    7-channel maps on the per-face atlas, the default light) and on the
+    flagship's 64 MANO hands in vertex colours with the light estimator's
+    light (its colours and directions leaves), against the plain version
+    (`k6_case`); a raise on bf16 channels and on non-contiguous maps."""
+    from hifihr_tpu_torch.render.renderer import PhongRenderer, RenderSettings
+    from hifihr_tpu_torch.render.shading import DirectionalLight
+    from hifihr_tpu_torch.render.ssaa_shade import ssaa_shade
+
+    t0 = time.perf_counter()
+    verts, albedo, maps, K, renderer = k6_textured_scene(batch)
+    readings = [k6_case(renderer, verts, albedo, K, DirectionalLight.default(K6_B, device=verts.device), maps,
+                        f"the textured cell's {K6_B} NIMBLE hands")]
+    del maps
+    mverts, _, _, mattrs = posed_meshes(batch)
+    from hifihr_tpu_torch.hand.mano import ManoLayer
+
+    mano = ManoLayer(ncomps=45)
+    mrenderer = PhongRenderer(mano.faces_np, mano.v_template_np, RenderSettings(S, AA, "ssaa")).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    colors = torch.rand(B, 3, generator=gen, device="cuda").requires_grad_()
+    dirs = (torch.tensor([0.2, -0.3, -1.0], device="cuda") + 0.3 * torch.rand(B, 3, generator=gen, device="cuda"))
+    dirs = dirs.requires_grad_()
+    readings.append(k6_case(mrenderer, mverts, mattrs[..., :3].contiguous(), batch["Ks"],
+                            DirectionalLight.from_estimator(colors, dirs), None,
+                            f"the flagship's {B} MANO hands with the estimated light", light_leaves=(colors, dirs)))
+    tiny = {"face_id": torch.full((2, 12, 12), -1, dtype=torch.int32, device="cuda"),
+            "verts_screen": torch.rand(2, 10, 3, device="cuda"), "attrs": torch.rand(2, 10, 9, device="cuda"),
+            "faces": torch.randint(0, 10, (4, 3), device="cuda"), "light": DirectionalLight.default(2, device="cuda"),
+            "aa": 3, "kind": "atlas", "with_maps": True, "face_uv": torch.rand(4, 3, 2, device="cuda"),
+            "texture": torch.rand(2, 8, 8, 7, device="cuda")}
+    for why, over, exc in (("bf16 channels", {"attrs": tiny["attrs"].bfloat16()}, TypeError),
+                           ("non-contiguous maps", {"texture": torch.rand(2, 8, 7, 8, device="cuda").transpose(2, 3)},
+                            ValueError)):
+        try:
+            ssaa_shade(**dict(tiny, **over))
+        except exc as e:
+            print(f"K6 raises on {why}: {e}")
+        else:
+            check(False, f"K6 raises on {why}")
+    print(json.dumps({"K6": readings}))
+    print(f"phase K6 (SSAA shade): {time.perf_counter() - t0:.1f} s")
+    return readings
+
+
 def step_config(aa_mode: str = "msaa", hand_model: str = "mano", pretrain: str = "res50"):
     """The flagship steps' configuration (bench.py:52-63): full width and
     depth, the bench losses, Adam at lr 1e-3; `pretrain="effb3"` is bench's
@@ -1274,10 +1444,16 @@ def phase_eval_step(batch: dict, profile: bool, cfg, path: str, check_cfg, check
     launches = read_launches()
     check_route_launches(launches, f"the {path} eval step")
     print(f"{path} eval step launches: {launches}")
-    raster, gather, scatter = PATH_KERNELS[cfg.aa_mode]
-    check(launches[raster] == 1 and launches[gather] > 0 and launches[scatter] == 0
-          and sum(launches.values()) == launches[raster] + launches[gather],
-          f"the {cfg.aa_mode} rasteriser once, K2, and no backward or other rasteriser on the eval path: {launches}")
+    if cfg.aa_mode == "ssaa":  # K2 only where NIMBLE's corners are gathered for its normals
+        check(launches["K4 face_raster"] == 1 and launches["K6 ssaa_shade"] == 1
+              and sum(launches.values()) == 2 + launches["K2 gather_rows"],
+              f"K4 once, K6 once, no backward or other rasteriser on the ssaa eval path: {launches}")
+    else:
+        raster, gather, scatter = PATH_KERNELS[cfg.aa_mode]
+        check(launches[raster] == 1 and launches[gather] > 0 and launches[scatter] == 0
+              and sum(launches.values()) == launches[raster] + launches[gather],
+              f"the {cfg.aa_mode} rasteriser once, K2, and no backward or other rasteriser on the eval path: "
+              f"{launches}")
 
     shapes = {"joints": (n, 21, 3), "mano_verts": (n, 778, 3), "j2d": (n, 21, 2),
               "re_img": (n, S, S, 3), "re_sil": (n, S, S, 1), "re_depth": (n, S, S)}
@@ -1375,7 +1551,8 @@ def read_launches() -> dict:
     return {"K1 msaa_raster": counters["rasterize_msaa.launches"],
             "K2 gather_rows": counters["gather_rows.launches"],
             "K3 scatter_rows": counters["scatter_rows.launches"],
-            "K4 face_raster": counters["rasterize_face_id.launches"]}
+            "K4 face_raster": counters["rasterize_face_id.launches"],
+            "K6 ssaa_shade": counters["ssaa_shade.kernel_launches"]}
 
 
 def check_route_launches(launches: dict, what: str) -> None:
@@ -1515,6 +1692,9 @@ def phase_train_step(batch: dict, profile: bool, cfg, label: str, fired: tuple, 
     path = path or PATH_KERNELS[cfg.aa_mode]
     check(all(launches[k] > 0 for k in path) and sum(launches[k] for k in path) == sum(launches.values()),
           f"{', '.join(path)} and no other kernel ran on the {label} train path: {launches}")
+    if cfg.aa_mode == "ssaa":
+        check(counters["ssaa_shade.recomputes"] == 0 and counters["sample_texture.launches"] == 0,
+              f"no recompute and no composed texture sample in the {label} train step (K6 does both)")
     ssim_terms = [k for k in ("ssim_tex_self", "ssim_tex") if k in d]
     check(counters["ssim.launches"] == 3 * len(ssim_terms),
           f"K5's three launches for each SSIM term of the {label} train step ({ssim_terms}): "
@@ -2621,7 +2801,8 @@ def dp_flagship_rank(rank: int, world: int, device, fsdp: int) -> dict:
     torch.cuda.synchronize()
     launches = read_launches()
     check_route_launches(launches, f"the dp train step, {what}")
-    check(launches == {"K1 msaa_raster": 1, "K2 gather_rows": 1, "K3 scatter_rows": 1, "K4 face_raster": 0},
+    check(launches == {"K1 msaa_raster": 1, "K2 gather_rows": 1, "K3 scatter_rows": 1, "K4 face_raster": 0,
+                       "K6 ssaa_shade": 0},
           f"K1, K2 and K3 once each in the dp train step, {what}: {launches}")
     losses = {k: v.item() for k, v in d.items()}
     check(set(losses) == set(FIRED) | {"skipped"} and all(np.isfinite(list(losses.values())))
@@ -3123,6 +3304,7 @@ def main() -> int:
     table = phase_kernels(batch) + [phase_k4(batch)]
     print(f"phase kernels K1-K4: {time.perf_counter() - t0:.1f} s")
     phase_ssim()
+    phase_k6(batch)
     small = slice_batch()
     launches, hands = {}, {}
 
@@ -3147,6 +3329,10 @@ def main() -> int:
     ssaa_batch = {k: v[:SSAA_B] for k, v in batch.items()}
     ssaa_small = small_check(aa_mode="ssaa")
     cell("ssaa_", "mano ssaa", step_config("ssaa"), ssaa_batch, ssaa_batch, ssaa_small, ssaa_small[:2])
+    print("K6 launches in the SSAA eval and train steps: "
+          f"{launches['ssaa_eval_step']['K6 ssaa_shade']}, {launches['ssaa_train_step']['K6 ssaa_shade']}")
+    check(launches["ssaa_eval_step"]["K6 ssaa_shade"] == 1 and launches["ssaa_train_step"]["K6 ssaa_shade"] == 2,
+          "K6 once in the SSAA eval step and twice in its train step")
     t0 = time.perf_counter()
     nimble = phase_nimble_kernels(batch)
     print(f"phase NIMBLE kernels: {time.perf_counter() - t0:.1f} s")
@@ -3174,8 +3360,7 @@ def main() -> int:
     nimble_ssaa = step_config("ssaa", "nimble")
     nimble_ssaa_small = small_check(hand_model="nimble", aa_mode="ssaa")
     cell("nimble_ssaa_", "nimble ssaa", nimble_ssaa, ssaa_batch, ssaa_batch, nimble_ssaa_small,
-         nimble_ssaa_small[:2])
-    quad["nimble_ssaa"] = texture_quad(nimble_ssaa, ssaa_batch, "the NIMBLE SSAA train step")
+         nimble_ssaa_small[:2], train_path=NIMBLE_SSAA_PATH)
 
     # phase 27: the rgb2hm branch (the flagship plus the hourglass and its
     # five losses) at 224^2, eval and train at batch 64

@@ -44,6 +44,12 @@ SIGNATURES = {
              "hifihr_ssim_forward": ([_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P], _I),
              "hifihr_ssim_sum": ([_P, _I, ctypes.c_longlong, _P, _P], _I),
              "hifihr_ssim_backward": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P], _I)},
+    # kind, maps, face_id, faces, F, face_uv, table, V, R, texture, Ht, Wt, C, light, B, S, aa, then the
+    # forward's output, or the backward's output gradient and its three gradient buffers, and the stream
+    "ssaa_shade": {"hifihr_ssaa_shade_forward": ([_I, _I, _P, _P, _I, _P, _P, _I, _I, _P, _I, _I, _I, _P, _I, _I,
+                                                  _I, _P, _P], _I),
+                   "hifihr_ssaa_shade_backward": ([_I, _I, _P, _P, _I, _P, _P, _I, _I, _P, _I, _I, _I, _P, _I, _I,
+                                                   _I, _P, _P, _P, _P, _P], _I)},
 }
 
 _LOADED: dict[str, ctypes.CDLL] = {}

@@ -16,16 +16,21 @@ PhongRenderer), in two anti-aliasing modes:
   image (no gradient, outside the checkpoint) -> barycentric interpolation
   of [albedo | normals | points] through K2 -> Phong shading with the
   interpolated points -> RGB * mask, mask, depth -> aa_factor x aa_factor
-  average pool. The differentiable part is recomputed in backward
-  (`torch.utils.checkpoint`, JAX's `jax.checkpoint`): its supersampled
-  activations are 9x the MSAA path's.
+  average pool. On a CUDA tensor everything after K4 but the (B, V)-size
+  projection and per-vertex channels is K6 (render/ssaa_shade.py), one
+  launch forward and one backward that recomputes each fragment, so nothing
+  of the supersampled size is kept. On a CPU tensor it is the plain composed
+  pass (`_shade_plain`), recomputed in backward (`torch.utils.checkpoint`,
+  JAX's `jax.checkpoint`): its supersampled activations are 9x the MSAA
+  path's.
 
 Spans (utils/profiling.py): `renderer.raster` around the face selection (K1
-or K4); `renderer.shade` around the SSAA shade pass, and
-`renderer.shade.recompute` around its recompute, which runs inside
-`renderer.shade.bwd` on the autograd engine's thread (counted on
-`ssaa_shade.recomputes`); `renderer.texture` inside it
-(render/texture.py).
+or K4); `renderer.shade` around the SSAA shade pass (its `.bwd` the pass's
+backward). On the CPU `renderer.shade.recompute` is around its recompute,
+which runs inside `renderer.shade.bwd` on the autograd engine's thread
+(counted on `ssaa_shade.recomputes`), with `renderer.texture` inside it
+(render/texture.py); on the card K6 counts its launches on
+`ssaa_shade.kernel_launches`.
 
 The UV path (a `texture_image` and a UV chart given; NIMBLE with
 `nimble_corner_tex=False` in MSAA, and NIMBLE in SSAA): the channels are
@@ -34,7 +39,8 @@ atlas corners interpolated beside them (in MSAA a static channel of K2's
 row, 9 + 3 (6 + 2) = 33 floats for NIMBLE; in SSAA
 `interpolate_face_attribute`), and each fragment samples the maps
 (`texture.sample_texture`: a K2 fetch of the packed texel quads, K3 in
-backward); a per-vertex chart alone rides the vertex channels.
+backward; in SSAA on the card, K6's own bilinear fetch); a per-vertex chart
+alone rides the vertex channels.
 
 Given a `sort_template`, the faces are put in the Morton order of the
 template: face ids, and so the rasterisers' tie rules, are then internal to
@@ -59,6 +65,7 @@ from hifihr_tpu_torch.render.mesh import vertex_normals, vertex_normals_and_tang
 from hifihr_tpu_torch.render.raster import project_to_screen, rasterize_face_id
 from hifihr_tpu_torch.render.raster_msaa import rasterize_msaa
 from hifihr_tpu_torch.render.shading import DirectionalLight, phong_shade
+from hifihr_tpu_torch.render.ssaa_shade import ssaa_shade
 from hifihr_tpu_torch.render.texture import sample_texture
 from hifihr_tpu_torch.utils import profiling
 
@@ -294,6 +301,8 @@ class PhongRenderer(nn.Module):
         s = self.settings
         K_big = _scale_intrinsics(K, float(s.aa_factor))
         face_id, _ = self.select_faces_ssaa(verts_cam, K)
+        if face_id.is_cuda:
+            return self._shade_k6(plan, face_id, verts_cam, vert_colors, K_big, light, texture_image)
         runs = [0]  # the shade's runs: the first is the forward, a later one checkpoint's recompute
 
         def shade(verts_cam, vert_colors, texture_image):
@@ -303,14 +312,9 @@ class PhongRenderer(nn.Module):
                 profiling.counters["ssaa_shade.recomputes"] += 1
             name = "renderer.shade.recompute" if recompute else "renderer.shade"
             with profiling.span(name, (verts_cam, vert_colors, texture_image)) as sp:
-                frag = barycentric_coords(face_id, project_to_screen(verts_cam, K_big), self.faces)
-                pix = interpolate_attribute(frag, self._assemble(plan, verts_cam, vert_colors,
-                                                                 include_points=True))
-                pix_uv = None
-                if plan.use_uv and self.face_uv is not None:
-                    pix_uv = interpolate_face_attribute(frag, face_id, self.face_uv)
-                out = _avg_pool(self._shade_pix(plan, pix, pix_uv, texture_image, frag["mask"], light),
-                                s.aa_factor)
+                out = self._shade_plain(plan, face_id, project_to_screen(verts_cam, K_big),
+                                        self._assemble(plan, verts_cam, vert_colors, include_points=True),
+                                        light, texture_image)
                 sp.outputs(out)
             return out
 
@@ -318,3 +322,29 @@ class PhongRenderer(nn.Module):
             return shade(verts_cam, vert_colors, texture_image)
         return checkpoint(shade, verts_cam, vert_colors, texture_image, use_reentrant=False,
                           preserve_rng_state=False)
+
+    def _shade_plain(self, plan: _Plan, face_id, verts_screen, attrs, light, texture_image) -> torch.Tensor:
+        """The SSAA shade pass in plain PyTorch: K4's face_id (B, S, S), the
+        screen vertices and `_assemble`'s channels with the points -> the
+        pooled (B, S / aa, S / aa, 5) render."""
+        frag = barycentric_coords(face_id, verts_screen, self.faces)
+        pix = interpolate_attribute(frag, attrs)
+        pix_uv = None
+        if plan.use_uv and self.face_uv is not None:
+            pix_uv = interpolate_face_attribute(frag, face_id, self.face_uv)
+        return _avg_pool(self._shade_pix(plan, pix, pix_uv, texture_image, frag["mask"], light),
+                         self.settings.aa_factor)
+
+    def _shade_k6(self, plan: _Plan, face_id, verts_cam, vert_colors, K_big, light, texture_image):
+        """The SSAA shade pass on the card: K6 (render/ssaa_shade.py), one
+        launch each way; the projection and the per-vertex channels stay
+        plain PyTorch at (B, V) size, inside the span."""
+        kind = "colors" if not plan.use_uv else "chart" if plan.uv_in_verts else "atlas"
+        with profiling.span("renderer.shade", (verts_cam, vert_colors, texture_image)) as sp:
+            out = ssaa_shade(face_id, project_to_screen(verts_cam, K_big),
+                             self._assemble(plan, verts_cam, vert_colors, include_points=True), self.faces,
+                             light, self.settings.aa_factor, kind, plan.with_maps,
+                             face_uv=self.face_uv if kind == "atlas" else None,
+                             texture=texture_image.contiguous() if plan.use_uv else None)
+            sp.outputs(out)
+        return out

@@ -48,10 +48,13 @@ the SSAA render's work, always on (one integer add a call):
   scatter_rows.launches               K3 launches (gather_rows' backward too)
   ssim.launches                       K5 launches (losses/ssim.py: two a forward, one a backward)
   sample_texture.launches             render/texture.py::sample_texture calls, each one K2 fetch of
-                                      texel quads (on the CPU too: two an SSAA train step, the
-                                      shade and its recompute)
+                                      texel quads (on the CPU too: two an SSAA train step on the
+                                      CPU, the shade and its recompute; none in SSAA on the card)
   ssaa_shade.recomputes               recomputes of the SSAA shade pass in backward (one an SSAA
-                                      train step; on the CPU too)
+                                      train step on the CPU; none on the card, where K6 recomputes
+                                      each fragment in its backward launch)
+  ssaa_shade.kernel_launches          K6 launches (render/ssaa_shade.py: one a forward, one a
+                                      backward; two an SSAA train step on the card, one an eval)
 
 Trace. `trace(log_dir)` runs torch.profiler (CPU activity, and CUDA
 activity where there is a card) with the spans on over the block and writes
@@ -75,7 +78,8 @@ import torch
 counters = dict.fromkeys(("rasterize_msaa.launches", "rasterize_msaa.device_launches",
                           "rasterize_face_id.launches", "rasterize_face_id.device_launches",
                           "gather_rows.launches", "scatter_rows.launches", "ssim.launches",
-                          "sample_texture.launches", "ssaa_shade.recomputes"), 0)
+                          "sample_texture.launches", "ssaa_shade.recomputes",
+                          "ssaa_shade.kernel_launches"), 0)
 
 
 @dataclass(frozen=True)

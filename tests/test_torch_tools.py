@@ -334,7 +334,8 @@ def test_route_counters_live_in_the_registry():
     assert set(counters) == {"rasterize_msaa.launches", "rasterize_msaa.device_launches",
                              "rasterize_face_id.launches", "rasterize_face_id.device_launches",
                              "gather_rows.launches", "scatter_rows.launches", "ssim.launches",
-                             "sample_texture.launches", "ssaa_shade.recomputes"}
+                             "sample_texture.launches", "ssaa_shade.recomputes",
+                             "ssaa_shade.kernel_launches"}
     for fn in (raster_msaa.rasterize_msaa, raster.rasterize_face_id, gather.gather_rows, gather.scatter_rows):
         assert not hasattr(fn, "launches") and not hasattr(fn, "device_launches")
     before = dict(counters)
